@@ -16,12 +16,37 @@ around it: it imports nothing of the JAX package.  Phases:
    the same FDb, with the fused launch contract (⌈shards/8⌉
    ``run_wave_fused`` per query) and every kernel's launch counter
    checked; the kernels' inputs are recorded in one more, untimed run;
+3b. serve: ``QueryServer(backend=TorchBackend(), cache=False)`` drains
+   four batches of 16 queries with ``run_pending()`` — three Trips
+   batches of Tesseract queries over varied city pairs and windows
+   (``also``, ``then``, dwell / ``at_least``: refine modes 0, 1, 2) and
+   one of SpeedObservations index probes with a per-road aggregate —
+   each query held against the numpy oracle run alone, one coalesced
+   batch a group, ⌈shards/8⌉ ``run_wave_fused_multi`` a batch and one
+   multi-query refine launch a Trips wave; the batch's wall time beside
+   16 single queries on the same backend; a repeat with the result cache
+   on launches nothing;
+3c. filter: the paper's Q2 in its ``geo_index`` and ``full_scan`` modes
+   (``.filter()`` after the read, the single-mask ``compact`` per shard)
+   against the oracle;
+3d. retry: Q7-agg and Q1 with two shards failing once (``FaultPlan``),
+   retried through the single-shard seam (``bitmap_intersect``,
+   ``compact``, the S=1 ``refine_tracks``), against the oracle;
 4. kernels: each kernel against its plain PyTorch version on the card, at
-   the wave shapes the main path gave it (every refine output mode, both
+   the largest shape the main path gave it (every refine output mode, both
    segment_agg branches) and at one larger shape, timed with CUDA events
-   beside the plain version and a library call;
+   beside the plain version and a library call, and its wrapper's device
+   time per call from ``torch.profiler`` (``device_ms``);
 5. profile: per warm query, the fused stages' times, the host functions
-   (``cProfile``) and the device's busy share (``torch.profiler``).
+   (``cProfile``) and the device's busy share (``torch.profiler``); per
+   serve batch, the host functions and the device's busy share of one
+   warm ``run_pending()``.
+
+Every main-path run sets the launch counters to 0 just before it and
+reads them just after; a kernel's ``launches`` is the sum over phases 3-3d.
+``bitset_binary`` (row 8) is on no path of the engines (only
+``ops.bitmap_binary`` reaches it), so it reports 0 launches and is held
+and timed in phase 4 only.
 
 It prints one ``{"kernels": [...]}`` line and, last, the device line.
 Any mismatch or exception ends it with a non-zero exit code.
@@ -67,7 +92,25 @@ KERNELS = {
                     "src/repro/kernels/segment_agg.py:74"),
     "refine_tracks_batched": ("src/repro_torch/kernels/csrc/refine.cu",
                               "src/repro/kernels/refine.py:243"),
+    "refine_tracks_multi": ("src/repro_torch/kernels/csrc/refine.cu",
+                            "src/repro/kernels/refine.py:402"),
+    "bitmap_intersect": ("src/repro_torch/kernels/csrc/bitset.cu",
+                         "src/repro/kernels/bitset.py:97"),
+    "compact": ("src/repro_torch/kernels/csrc/compact.cu",
+                "src/repro/kernels/compact.py:59"),
+    "bitset_binary": ("src/repro_torch/kernels/csrc/bitset.cu",
+                      "src/repro/kernels/bitset.py:53"),
+    # row 4's kernel at S=1 (the retry path's single-shard refine)
+    "refine_tracks": ("src/repro_torch/kernels/csrc/refine.cu",
+                      "src/repro/kernels/refine.py:431"),
 }
+#: kernels no engine path launches (held and timed in phase 4 only)
+OFF_PATH = {"bitset_binary"}
+#: refine wrappers whose recorded inputs are kept per output mode
+REFINES = ("refine_tracks_batched", "refine_tracks_multi", "refine_tracks")
+SERVE_BATCH = 16
+#: shards that fail once in the retry phase
+FAILING_SHARDS = (1, 3)
 
 
 def fail(msg: str) -> None:
@@ -87,9 +130,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
     from repro_torch.core import BETWEEN, IN, P, Session, fdb, group, proto
-    from repro_torch.data.synthetic import BAY_AREA, city_region, \
-        generate_world
-    from repro_torch.exec import Catalog, NumpyBackend, TorchBackend
+    from repro_torch.core import exprs
+    from repro_torch.data.synthetic import BAY_AREA, NEIGHBORS, \
+        city_region, generate_world
+    from repro_torch.exec import Catalog, FaultPlan, NumpyBackend, \
+        TorchBackend
+    from repro_torch.serve import QueryServer
     from repro_torch.fdb import build_fdb
     from repro_torch.kernels import _build, bitset, compact, ops, ref, \
         refine, segment_agg
@@ -168,22 +214,36 @@ def main() -> int:
     # output mode, segment_agg per branch), calling straight through —
     # nothing extra launches.  Inputs are copied only in one more run after
     # the timed ones, so no timed run carries the copies; segment_agg's
-    # launches per branch are counted in every run.
+    # launches per branch are counted in every run.  Each phase records
+    # the kernels it brings in (rows 1-4 at their phase-3 shapes as in
+    # earlier runs; the serve phase's folded [Q·S, ...] probe and compact
+    # stacks under their own key).
     captured = {}
     seg_branch_launches = {branch: 0 for branch in SEG_BRANCHES}
     wrappers = [(bitset, "bitmap_intersect_batched"),
                 (compact, "compact_batched"),
                 (segment_agg, "segment_agg"),
-                (refine, "refine_tracks_batched")]
+                (refine, "refine_tracks_batched"),
+                (refine, "refine_tracks_multi"),
+                (bitset, "bitmap_intersect"),
+                (compact, "compact"),
+                (refine, "refine_tracks")]
     originals = {name: getattr(mod, name) for mod, name in wrappers}
 
-    recording = [False]
+    phase_kernels = {
+        "e2e": {"bitmap_intersect_batched", "compact_batched", "segment_agg",
+                "refine_tracks_batched"},
+        "serve": {"refine_tracks_multi", "bitmap_intersect_batched",
+                  "compact_batched"},
+        "filter": {"compact"},
+        "retry": {"bitmap_intersect", "compact", "refine_tracks"}}
+    recording = [None]                     # the phase being recorded
     capture_lock = threading.Lock()        # waves run on worker threads
 
     def recorder(name, fn):
         def call(*args, **kw):
             key = name
-            if name == "refine_tracks_batched":
+            if name in REFINES:
                 key = (name, 2 if kw.get("with_analytics")
                        else int(bool(kw.get("with_first_hits"))))
             elif name == "segment_agg":
@@ -192,8 +252,11 @@ def main() -> int:
                 if args[0].numel() and args[2]:   # the wrapper launches
                     with capture_lock:
                         seg_branch_launches[branch] += 1
-            if not recording[0]:
+            phase = recording[0]
+            if phase is None or name not in phase_kernels[phase]:
                 return fn(*args, **kw)
+            if phase == "serve" and name in phase_kernels["e2e"]:
+                key = (name, "serve")
             size = args[0].numel()
             with capture_lock:
                 if key not in captured or captured[key][0] < size:
@@ -243,7 +306,7 @@ def main() -> int:
         sess = sessions[qname] = Session(catalog=cat, backend=TorchBackend())
         warm = []
         for run in ["cold"] + ["warm"] * WARM_RUNS + ["capture"]:
-            recording[0] = run == "capture"
+            recording[0] = "e2e" if run == "capture" else None
             ops.reset_launch_counts()
             _build.reset_kernel_launches()
             t0 = time.perf_counter()
@@ -278,11 +341,176 @@ def main() -> int:
         row.update(warm_ms=sorted(warm)[len(warm) // 2], warm_min_ms=min(warm),
                    rows=len(want), match=True)
         print("e2e " + json.dumps(row))
-    recording[0] = False
+
+    def counted(run, fn, phase=None):
+        """Drive one main-path run with every launch count set to 0 just
+        before and read just after (``phase``'s kernel inputs recorded on
+        ``capture`` runs); returns (result, dispatches, kernel launches,
+        wall ms)."""
+        recording[0] = phase if run == "capture" else None
+        ops.reset_launch_counts()
+        _build.reset_kernel_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        lc, kc = ops.launch_counts(), _build.kernel_launches()
+        recording[0] = None
+        for k in KERNELS:
+            totals[k] += kc.get(k, 0)
+        return out, lc, kc, ms
+
+    def need_launches(where, kc, need):
+        for k, n in need.items():
+            if kc.get(k, 0) != n:
+                fail(f"{where}: {k} launched {kc.get(k, 0)} times, expected "
+                     f"{n}")
+
+    # ------------------------------------------------------------ 3b. serve
+    pairs = [(a, b) for a, bs in NEIGHBORS.items() for b in bs][:SERVE_BATCH]
+
+    def trips_batch(kind):
+        flows = []
+        for i, (a, b) in enumerate(pairs):
+            h = 5 + i % 4
+            t = Tesseract(city_region(a), *win(h, h + 6))
+            if kind == "dwell":
+                t = t.dwell(600.0) if i % 2 == 0 else t.at_least(2)
+            leg = (city_region(b), *win(h + 1, h + 13))
+            t = t.then(*leg) if kind == "then" else t.also(*leg)
+            flows.append(fdb("Trips").tesseract(t)
+                         .map(lambda p: proto(id=p.id, day=p.day)))
+        return flows
+
+    obs_cities = [c for c in BAY_AREA]
+    obs_flows = [fdb("SpeedObservations")
+                 .find(IN(P.loc, city_region(obs_cities[i % 4]))
+                       & BETWEEN(P.hour, 6 + i // 4, 7 + i // 4)
+                       & BETWEEN(P.dow, 0, 4))
+                 .aggregate(group(P.road_id).count("n").avg(d=P.speed))
+                 for i in range(SERVE_BATCH)]
+    batches = {"trips-also": ("Trips", trips_batch("also"), 0),
+               "trips-then": ("Trips", trips_batch("then"), 1),
+               "trips-dwell": ("Trips", trips_batch("dwell"), 2),
+               "obs-index": ("SpeedObservations", obs_flows, None)}
+    serve_backend = TorchBackend()
+    singles = Session(catalog=cat, backend=serve_backend)
+    refine_waves = 0
+    for bname, (source, flows, mode) in batches.items():
+        t0 = time.perf_counter()
+        want = [oracle.run(f).to_records() for f in flows]
+        row = {"batch": bname, "queries": len(flows), "refine_mode": mode,
+               "numpy_singly_ms": (time.perf_counter() - t0) * 1e3,
+               "rows": sum(len(w) for w in want)}
+        waves = math.ceil(cat.get(source).num_shards / WAVE)
+        srv = QueryServer(backend=serve_backend, catalog=cat, cache=False,
+                          start=False)
+        for run in ("cold", "warm", "capture"):
+            futs = [srv.submit(f) for f in flows]
+            before = srv.stats()["coalesced_batches"]
+            _, lc, kc, ms = counted(run, srv.run_pending, "serve")
+            where = f"serve {bname} {run}"
+            if srv.stats()["coalesced_batches"] - before != 1:
+                fail(f"{where}: {srv.stats()} — expected one coalesced "
+                     "batch")
+            if lc.get("run_wave_fused_multi", 0) != waves \
+                    or "run_wave_fused" in lc:
+                fail(f"{where}: dispatches {lc}, expected "
+                     f"{{'run_wave_fused_multi': {waves}}}")
+            need = {"bitmap_intersect_batched": waves,
+                    "compact_batched": waves,
+                    "refine_tracks_multi": waves if mode is not None else 0}
+            need_launches(where, kc, need)
+            refine_waves += kc.get("refine_tracks_multi", 0)
+            for i, (fut, w) in enumerate(zip(futs, want)):
+                check_close(f"{where} q{i}", fut.result(600).to_records(), w)
+            row[f"{run}_ms"] = ms
+            row[f"{run}_kernels"] = kc
+        # the same 16 queries one by one on the same (warm) backend
+        counted("singles", lambda: [singles.run(f) for f in flows])
+        _, _, _, row["singles_warm_ms"] = counted(
+            "singles", lambda: [singles.run(f) for f in flows])
+        # with the result cache on, a repeat launches nothing
+        cached = QueryServer(backend=serve_backend, catalog=cat,
+                             start=False)
+        futs = [cached.submit(f) for f in flows]
+        counted("fill", cached.run_pending)
+        futs = [cached.submit(f) for f in flows]
+        _, lc, kc, row["cached_ms"] = counted("cached", cached.run_pending)
+        if lc or kc or cached.stats()["cache_hits"] != len(flows):
+            fail(f"serve {bname} cached: dispatches {lc}, kernels {kc}, "
+                 f"stats {cached.stats()}")
+        for i, (fut, w) in enumerate(zip(futs, want)):
+            check_close(f"serve {bname} cached q{i}",
+                        fut.result(600).to_records(), w)
+        row.update(shards=cat.get(source).num_shards, waves=waves,
+                   match=True)
+        print("serve " + json.dumps(row))
+    if refine_waves != 3 * 3 * math.ceil(trips.num_shards / WAVE):
+        fail(f"refine_tracks_multi launched {refine_waves} times over the "
+             "Trips batches' runs, expected one a wave")
+
+    # ----------------------------------------------------------- 3c. filter
+    sf = city_region("SF")
+    q2_agg = group(P.road_id).avg(d=P.speed).std_dev(sd=P.speed).count("n")
+    filters = {
+        "Q2-geo_index": fdb("SpeedObservations").find(IN(P.loc, sf))
+        .filter(BETWEEN(P.hour, 8, 9) & BETWEEN(P.dow, 0, 4)
+                & BETWEEN(P.month, 1, 1)).aggregate(q2_agg),
+        "Q2-full_scan": fdb("SpeedObservations")
+        .filter(((P.hour + 0) >= 8) & ((P.hour + 0) <= 9)
+                & ((P.dow + 0) <= 4) & ((P.month + 0) <= 1))
+        .filter(exprs.ExprProxy(exprs.InRegion(exprs.FieldRef("loc"), sf)))
+        .aggregate(q2_agg),
+    }
+    for qname, flow in filters.items():
+        t0 = time.perf_counter()
+        want = oracle.run(flow).to_records()
+        row = {"query": qname, "numpy_ms": (time.perf_counter() - t0) * 1e3,
+               "rows": len(want)}
+        sess = Session(catalog=cat, backend=TorchBackend())
+        for run in ("cold", "warm", "capture"):
+            res, lc, kc, ms = counted(run, lambda: sess.run(flow), "filter")
+            shards = len(res.plan.shard_ids)
+            if lc.get("run_wave_fused") != math.ceil(shards / WAVE) \
+                    or not 0 < kc.get("compact", 0) <= 2 * shards:
+                fail(f"{qname} {run}: dispatches {lc}, kernels {kc}")
+            check_close(f"{qname} {run}", res.to_records(), want)
+            row[f"{run}_ms"] = ms
+            row[f"{run}_kernels"] = kc
+        print("filter " + json.dumps({**row, "match": True}))
+
+    # ------------------------------------------------------------ 3d. retry
+    for qname in ("Q7-agg", "Q1"):
+        make, has_refine, _ = queries[qname]
+        flow = make()
+        want = oracle.run(flow).to_records()
+        sess = sessions[qname]              # primed by phase 3
+        row = {"query": qname, "failing_shards": list(FAILING_SHARDS)}
+        for run in ("warm", "capture"):
+            plan = FaultPlan(fail_once={("server", s) for s in
+                                        FAILING_SHARDS})
+            res, lc, kc, ms = counted(
+                run, lambda: sess.run(flow, fault_plan=plan), "retry")
+            n = len(FAILING_SHARDS)
+            if res.profile.retries != n or res.profile.dropped_shards:
+                fail(f"retry {qname} {run}: retries {res.profile.retries}, "
+                     f"dropped {res.profile.dropped_shards}")
+            need = {"bitmap_intersect": n, "compact": n}
+            if has_refine:
+                need["refine_tracks"] = n
+            need_launches(f"retry {qname} {run}", kc, need)
+            check_close(f"retry {qname} {run}", res.to_records(), want)
+            row[f"{run}_ms"] = ms
+            row[f"{run}_kernels"] = kc
+            row[f"{run}_dispatches"] = lc
+        print("retry " + json.dumps({**row, "match": True}))
+
+    recording[0] = None
     for mod, name in wrappers:
         setattr(mod, name, originals[name])
     for k, n in totals.items():
-        if n == 0:
+        if n == 0 and k not in OFF_PATH:
             fail(f"kernel {k} was never launched on the main path")
     if sum(seg_branch_launches.values()) != totals["segment_agg"]:
         fail(f"segment_agg branch launches {seg_branch_launches} do not add "
@@ -303,6 +531,24 @@ def main() -> int:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    def device_ms(fn, iters=20):
+        """Device time of one wrapper call (its kernels, memsets and small
+        tensor ops) from ``torch.profiler``; the CUDA-event time above
+        also counts the host's enqueue when the host is the slower side."""
+        from torch.autograd import DeviceType
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        if not dev:
+            return "not measured"
+        return sum(e.self_device_time_total for e in dev) / 1e3 / iters
 
     def bound(nbytes, nops):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, nops / SCALAR_OPS_PER_S
@@ -328,6 +574,7 @@ def main() -> int:
         err = compare(run_kernel(), run_plain())
         b_ms, b_by = bound(nbytes, nops)
         return {"max_abs_err": err, "ms": cuda_ms(run_kernel, iters),
+                "device_ms": device_ms(run_kernel),
                 "plain_ms": cuda_ms(run_plain, plain_iters),
                 "library_ms": (cuda_ms(run_library, iters)
                                if run_library else None),
@@ -397,12 +644,72 @@ def main() -> int:
                 20 * s * p + 32 * c * r + out_b,
                 valid * c * (3 + math.ceil(math.log2(max(r, 2)))))
 
-    def large_refine(args, kw):
+    def large_refine(args, kw, n=reps):
+        """The refine inputs with each shard's points tiled ``n`` times
+        (the copies' rows offset into new docs)."""
         pts, rows, cov, docs = args
-        pts = tile(pts, reps, 2)
+        pts = tile(pts, n, -1)
         rows = torch.cat([torch.where(rows >= 0, rows + i * docs, rows)
-                          for i in range(reps)], dim=1).contiguous()
-        return (pts, rows, cov, docs * reps), kw
+                          for i in range(n)], dim=-1).contiguous()
+        return (pts, rows, cov, docs * n), kw
+
+    def refine_mode(kw):
+        return 2 if kw.get("with_analytics") else int(
+            bool(kw.get("with_first_hits")))
+
+    def refine_multi_case(args, kw):
+        """Q queries' tables against one wave: the tracks are read once
+        for all queries, each query's table once, each output once."""
+        pts, rows, cov, docs = args
+        s, _, p = pts.shape
+        q, c, _, r = cov.shape
+        valid = int((rows >= 0).sum())
+        out_b = 4 * q * s * docs + q * s * c * docs * (0, 8, 20)[
+            refine_mode(kw)]
+        return (lambda: refine.refine_tracks_multi(*args, **kw),
+                lambda: ref.refine_tracks_multi_ref(*args, **kw), None,
+                lambda g, w_: exact("refine_tracks_multi", g, w_),
+                20 * s * p + 32 * q * c * r + out_b,
+                valid * q * c * (3 + math.ceil(math.log2(max(r, 2)))))
+
+    def refine_one_case(args, kw):
+        """One shard (pts [4, P], rows [P]): the S=1 refine."""
+        pts, rows, cov, docs = args
+        p = pts.shape[1]
+        c, _, r = cov.shape
+        valid = int((rows >= 0).sum())
+
+        def plain():
+            out = ref.refine_tracks_batched_ref(pts[None], rows[None], cov,
+                                                docs, **kw)
+            return tuple(o[0] for o in out) if isinstance(out, tuple) \
+                else out[0]
+
+        return (lambda: refine.refine_tracks(*args, **kw), plain, None,
+                lambda g, w_: exact("refine_tracks", g, w_),
+                20 * p + 32 * c * r + 4 * docs
+                + c * docs * (0, 8, 20)[refine_mode(kw)],
+                valid * c * (3 + math.ceil(math.log2(max(r, 2)))))
+
+    def intersect_case(stack):
+        k, w = stack.shape
+        return (lambda: bitset.bitmap_intersect(stack),
+                lambda: ref.bitmap_intersect_ref(stack), None,
+                lambda g, w_: exact("bitmap_intersect", g, w_),
+                4 * k * w + 4 * w + 4, w * (k + 1))
+
+    def mask_case(mask, fn, plain, library):
+        """Single mask: N bytes read, N int32 written, plus the count."""
+        n = mask.numel()
+        return (lambda: fn(mask), lambda: plain(mask), library,
+                lambda g, w_: exact(fn.__name__, g, w_), 5 * n + 4, n)
+
+    def binary_case(a, b, op="and"):
+        w = a.numel()
+        return (lambda: bitset.bitset_binary(a, b, op),
+                lambda: ref.bitset_binary_ref(a, b, op),
+                (lambda: torch.bitwise_and(a, b)) if op == "and" else None,
+                lambda g, w_: exact("bitset_binary", g, w_), 12 * w, w)
 
     results = []
     for name, (src, replaces) in KERNELS.items():
@@ -430,12 +737,88 @@ def main() -> int:
             big = tile(stack, reps, 2)
             large = measure(name, *bitset_case(big), 50, 5)
             shape, lshape = list(stack.shape), list(big.shape)
+            served = captured[(name, "serve")][1][0]   # [Q·S, K, W]
+            entry["serve"] = {"shape": list(served.shape),
+                              **measure(name, *bitset_case(served), 200, 20)}
         elif name == "compact_batched":
             masks = captured[name][1][0]
             wave = measure(name, *compact_case(masks), 200, 20)
             big = tile(masks, reps, 1)
             large = measure(name, *compact_case(big), 50, 5)
             shape, lshape = list(masks.shape), list(big.shape)
+            served = captured[(name, "serve")][1][0]   # [Q·S, N]
+            entry["serve"] = {"shape": list(served.shape),
+                              **measure(name, *compact_case(served), 200,
+                                        20)}
+        elif name == "refine_tracks_multi":
+            modes = sorted(k[1] for k in captured
+                           if isinstance(k, tuple) and k[0] == name)
+            for mode in modes:            # every output mode, exact
+                _, args, kw = captured[(name, mode)]
+                case = refine_multi_case(args, kw)
+                case[3](case[0](), case[1]())
+            _, args, kw = captured[(name, 0)]
+            q, p_m = args[2].shape[0], args[0].shape[2]
+            reps_m = max(1, round(LARGE_POINTS / (p_m * q)))
+            wave = measure(name, *refine_multi_case(args, kw), 20, 1)
+            largs, lkw = large_refine(args, kw, reps_m)
+            large = measure(name, *refine_multi_case(largs, lkw), 5, 1)
+            shape = [list(args[0].shape), list(args[2].shape)]
+            lshape = [list(largs[0].shape), list(largs[2].shape)]
+            entry["modes_checked"] = modes
+        elif name == "refine_tracks":
+            modes = sorted(k[1] for k in captured
+                           if isinstance(k, tuple) and k[0] == name)
+            for mode in modes:
+                _, args, kw = captured[(name, mode)]
+                case = refine_one_case(args, kw)
+                case[3](case[0](), case[1]())
+            _, args, kw = captured[(name, modes[0])]
+            wave = measure(name, *refine_one_case(args, kw), 50, 3)
+            largs, lkw = large_refine(args, kw, reps)
+            large = measure(name, *refine_one_case(largs, lkw), 10, 1)
+            shape, lshape = list(args[0].shape), list(largs[0].shape)
+            entry["modes_checked"] = modes
+        elif name == "bitmap_intersect":
+            stack = captured[name][1][0]
+            wave = measure(name, *intersect_case(stack), 200, 20)
+            big = tile(stack, reps, 1)
+            large = measure(name, *intersect_case(big), 50, 5)
+            shape, lshape = list(stack.shape), list(big.shape)
+        elif name == "compact":
+            mask = captured[name][1][0]
+            big = tile(mask, reps, 0)
+            wave = measure(name, *mask_case(mask, compact.compact,
+                                            ref.compact_ref,
+                                            lambda: torch.nonzero(mask)),
+                           200, 20)
+            large = measure(name, *mask_case(big, compact.compact,
+                                             ref.compact_ref,
+                                             lambda: torch.nonzero(big)),
+                            50, 5)
+            # the same kernel's prefix-sum output (mask_prefix_sum)
+            entry["mask_prefix_sum"] = {
+                "wave": measure("mask_prefix_sum", *mask_case(
+                    mask, compact.mask_prefix_sum, ref.mask_prefix_sum_ref,
+                    None), 200, 20),
+                "large": measure("mask_prefix_sum", *mask_case(
+                    big, compact.mask_prefix_sum, ref.mask_prefix_sum_ref,
+                    None), 50, 5)}
+            shape, lshape = list(mask.shape), list(big.shape)
+        elif name == "bitset_binary":
+            # on no engine path: two shard bitmaps of the retry phase
+            stack = captured["bitmap_intersect"][1][0]
+            a, b = stack[0].contiguous(), stack[-1].contiguous()
+            big_a, big_b = tile(a, reps, 0), tile(b, reps, 0)
+            for op in ("or", "andnot"):
+                for x, y in ((a, b), (big_a, big_b)):
+                    case = binary_case(x, y, op)
+                    case[3](case[0](), case[1]())
+            wave = measure(name, *binary_case(a, b), 200, 20)
+            large = measure(name, *binary_case(big_a, big_b), 50, 5)
+            shape, lshape = list(a.shape), list(big_a.shape)
+            entry.update(on_main_path=False, ops_checked=["and", "or",
+                                                          "andnot"])
         else:
             # each branch at its largest main-path input; the top-level
             # numbers are the global branch's (Q1's wave, the largest)
@@ -472,9 +855,9 @@ def main() -> int:
                       f"{large['plain_ms']:.3f}, index_add_ "
                       f"{large['library_ms']:.4f})")
             top = branches["global"]
-            wave = {k: top[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                        "library_ms", "bound_ms",
-                                        "bound_by")}
+            wave = {k: top[k] for k in ("max_abs_err", "ms", "device_ms",
+                                        "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")}
             large = {k: v for k, v in top["large"].items() if k != "shape"}
             shape, lshape = top["shape"], top["large"]["shape"]
             entry.update(selected_share=top["selected_share"],
@@ -489,12 +872,81 @@ def main() -> int:
               f"{large['bound_ms']:.4f}, plain {large['plain_ms']:.3f})")
 
     profile_queries(torch, queries, sessions)
+    profile_serve(torch, batches, serve_backend, cat)
     print(smi)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _host_rows(stats):
+    """(cumulative ms, self ms, "file:function") per function profiled."""
+    return [(ct * 1e3, tt * 1e3, f"{Path(f).name}:{fn}")
+            for (f, _line, fn), (_cc, _nc, tt, ct, _) in stats.items()]
+
+
+def _own_and_self(rows, n_own=12, n_self=8):
+    """The port's own functions by cumulative ms, and any by self ms."""
+    own = sorted((r for r in rows if "repro_torch" in r[2]
+                  or r[2].split(":")[0] in PORT_FILES),
+                 key=lambda r: -r[0])[:n_own]
+    return ({name: round(ct, 3) for ct, _, name in own},
+            {name: round(tt, 3) for _, tt, name in
+             sorted(rows, key=lambda r: -r[1])[:n_self]})
+
+
+def _device_busy(torch, prof, wall_ms, top=6):
+    """Busy ms (sum of device self time), idle share and top entries of
+    a ``torch.profiler`` run, or "not measured" when it saw no device
+    time."""
+    from torch.autograd import DeviceType
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    entries = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
+    return {"device_busy_ms": busy_ms if dev else "not measured",
+            "device_idle_share": (1 - busy_ms / wall_ms) if dev
+            else "not measured",
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                              for e in entries}}
+
+
+def profile_serve(torch, batches, backend, cat) -> None:
+    """Phase 5, serve: where a warm coalesced batch's wall time goes — one
+    ``run_pending()`` of 16 queries under ``cProfile`` (host functions)
+    and one under ``torch.profiler`` (device busy share)."""
+    import cProfile
+    import pstats
+    from repro_torch.serve import QueryServer
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for bname, (_source, flows, _mode) in batches.items():
+        srv = QueryServer(backend=backend, catalog=cat, cache=False,
+                          start=False)
+
+        def drain():
+            for f in flows:
+                srv.submit(f)
+            t0 = time.perf_counter()
+            srv.run_pending()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        drain()                                  # warm
+        host = cProfile.Profile()
+        host.enable()
+        host_ms = drain()
+        host.disable()
+        own, self_ms = _own_and_self(_host_rows(pstats.Stats(host).stats))
+        with torch.profiler.profile(activities=acts) as prof:
+            wall_ms = drain()
+        print("profile " + json.dumps({
+            "serve_batch": bname, "cprofile_wall_ms": host_ms,
+            "host_cum_ms": own, "host_self_ms": self_ms,
+            "profiled_wall_ms": wall_ms,
+            **_device_busy(torch, prof, wall_ms)}))
 
 
 def profile_queries(torch, queries, sessions) -> None:
@@ -510,7 +962,6 @@ def profile_queries(torch, queries, sessions) -> None:
       kernels' and copies' self time) and the top device entries."""
     import cProfile
     import pstats
-    from torch.autograd import DeviceType
     from repro_torch.core import Session
     from repro_torch.exec import AdHocEngine, ExecConfig
     from repro_torch.kernels import fused
@@ -542,32 +993,17 @@ def profile_queries(torch, queries, sessions) -> None:
         host.enable()
         host_ms = timed(seq, flow)
         host.disable()
-        rows = [(ct * 1e3, tt * 1e3, f"{Path(f).name}:{fn}")
-                for (f, _line, fn), (_cc, _nc, tt, ct, _) in
-                pstats.Stats(host).stats.items()]
-        own = sorted((r for r in rows if "repro_torch" in r[2]
-                      or r[2].split(":")[0] in PORT_FILES),
-                     key=lambda r: -r[0])[:12]
+        own, self_ms = _own_and_self(_host_rows(pstats.Stats(host).stats))
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             wall_ms = timed(warm, flow)
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-        top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
         print("profile " + json.dumps({
             "query": qname, "sequential_staged_wall_ms": staged_ms,
             "stages_ms": stages, "sequential_cprofile_wall_ms": host_ms,
-            "host_cum_ms": {name: round(ct, 3) for ct, _, name in own},
-            "host_self_ms": {name: round(tt, 3) for _, tt, name in
-                             sorted(rows, key=lambda r: -r[1])[:8]},
+            "host_cum_ms": own, "host_self_ms": self_ms,
             "profiled_wall_ms": wall_ms,
-            "device_busy_ms": busy_ms if dev else "not measured",
-            "device_idle_share": (1 - busy_ms / wall_ms) if dev
-            else "not measured",
-            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                              for e in top}}))
+            **_device_busy(torch, prof, wall_ms)}))
 
 
 if __name__ == "__main__":

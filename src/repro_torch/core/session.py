@@ -59,11 +59,13 @@ class Session:
         return self.vars[name]
 
     def serve(self, **kw):
-        """The coalescing query server over this session's engine —
-        not ported yet (ROADMAP.md, queue A item 7)."""
-        raise NotImplementedError(
-            "the query server is not ported yet (ROADMAP.md, queue A "
-            "item 7)")
+        """A :class:`~repro_torch.serve.QueryServer` bound to this
+        session's engine: concurrent submits against the session's
+        resident FDbs coalesce into shared multi-query wave dispatches,
+        with admission bounds and a TTL result cache (see
+        :mod:`repro_torch.serve`)."""
+        from ..serve import QueryServer
+        return QueryServer(engine=self.engine, **kw)
 
     # ---------------------------------------------------------- completion
     def complete(self, text: str, limit: int = 20) -> List[str]:

@@ -20,6 +20,15 @@ per-shard shapes into one stacked buffer and launches **one** kernel per
 wave, while the numpy base-class implementations loop shard-by-shard —
 the oracle the batched path must match byte-for-byte.
 
+**Single-shard seam.**  ``intersect_bitmaps`` / ``select_ids`` /
+``compact_mask`` / ``segment_aggregate`` / ``refine_tracks`` serve the
+paths that work shard by shard: ``.filter()`` and the server's record
+ops, the best-effort retry of a failed shard, and a mixer aggregate.
+
+**Multi-query ops.**  The query server coalesces Q compatible queries
+onto one wave: ``probe_shards_multi`` / ``refine_tracks_multi`` /
+``run_wave_fused_multi`` fold the query axis into one launch each.
+
 **Fused wave dispatch.**  ``run_wave_fused`` runs a whole wave's probe →
 refine → compact → segment-agg chain as ONE logical dispatch
 (:mod:`repro_torch.kernels.fused`): the numpy base class is the
@@ -46,14 +55,15 @@ import numpy as np
 import torch
 
 from ..fdb.columnar import Column, ColumnBatch
-from ..fdb.index import bitmap_from_ids, ids_from_bitmap, mask_from_bitmap
+from ..fdb.index import (bitmap_from_ids, bitmap_stack, ids_from_bitmap,
+                         mask_from_bitmap)
 from ..kernels import fused as _fused
 from ..kernels import ops as _ops
 from ..kernels.refine import MAX_CONSTRAINTS
 from .device_cache import DeviceCache, to_device, to_host
 from .refine import (FIRST_HIT_NONE, LAST_HIT_NONE, pack_constraints,
-                     pack_track_points, reduction_verdict,
-                     refine_tracks_host)
+                     pack_constraints_multi, pack_track_points,
+                     reduction_verdict, refine_tracks_host)
 
 
 def _has_red(min_counts, dwells) -> bool:
@@ -484,15 +494,18 @@ class NumpyBackend(ExecBackend):
 
 def _not_ported(op: str, where: str) -> NotImplementedError:
     return NotImplementedError(
-        f"TorchBackend.{op} is not ported yet ({where}); the fused wave "
-        "path never calls it")
+        f"TorchBackend.{op} is not ported yet ({where})")
 
 
 class TorchBackend(ExecBackend):
     """Routes the hot loop through :mod:`repro_torch.kernels.ops`: the
-    fused wave (``run_wave_fused``) and the wave-batched ops a declined
-    wave takes (``probe_shards``, ``refine_tracks_batched``,
-    ``compact_masks``, ``segment_aggregate_batched``) launch the four
+    fused wave (``run_wave_fused``), the wave-batched ops a declined wave
+    takes (``probe_shards``, ``refine_tracks_batched``, ``compact_masks``,
+    ``segment_aggregate_batched``), the single-shard seam the filter and
+    retry paths take (``intersect_bitmaps``, ``select_ids``,
+    ``compact_mask``, ``segment_aggregate``, ``refine_tracks``) and the
+    query server's coalesced ops (``probe_shards_multi``,
+    ``refine_tracks_multi``, ``run_wave_fused_multi``) launch the
     hand-written CUDA kernels on ``device``.
 
     ``device`` defaults to ``"cuda"``; without a CUDA device the
@@ -535,20 +548,30 @@ class TorchBackend(ExecBackend):
         # reentrant because prime_fdb calls _track_pack while holding it
         self._prime_lock = threading.RLock()
 
-    # ------------------------------------- single-shard ops (not ported)
+    # ------------------------------------------------- single-shard ops
     def intersect_bitmaps(self, full, bitmaps):
-        raise _not_ported("intersect_bitmaps",
-                          "ROADMAP.md § B, bitset.bitmap_intersect")
+        """One ``bitmap_intersect`` launch over the ``[1+K, W]`` stack of
+        the valid-doc bitmap and the probes (none: ``full`` itself)."""
+        if not bitmaps:
+            return full
+        bm, _count = _ops.bitmap_intersect(
+            self._up(bitmap_stack([full, *bitmaps])))
+        return to_host(bm, np.uint32)
 
     def select_ids(self, bitmap, n):
-        raise _not_ported("select_ids", "ROADMAP.md § B, compact.compact")
+        return self.compact_mask(mask_from_bitmap(bitmap, n))
 
     def compact_mask(self, mask):
-        raise _not_ported("compact_mask", "ROADMAP.md § B, compact.compact")
+        """One single-mask ``compact`` launch → ascending int64 ids."""
+        mask = np.asarray(mask, dtype=bool)
+        idx, count = _ops.compact(self._up(mask))
+        return idx[:int(count)].cpu().numpy().astype(np.int64)
 
     def segment_aggregate(self, codes, values, num_groups):
-        raise _not_ported("segment_aggregate",
-                          "ROADMAP.md queue A, single-shard seam")
+        """One ``segment_agg`` launch (float64 staging on the CPU:
+        bit-equal to the numpy oracle)."""
+        codes32 = np.ascontiguousarray(codes, dtype=np.int32)
+        return self._segment_dispatch(codes32, values, num_groups)
 
     # ------------------------------------------------------------ helpers
     def _up(self, arr: np.ndarray) -> torch.Tensor:
@@ -661,12 +684,14 @@ class TorchBackend(ExecBackend):
     def prime_fdb(self, db) -> int:
         """Put ``db``'s stable buffers on the device once (idempotent per
         FDb): column values and row_splits (``gather_columns``) and each
-        track's packed refine words (the refine stage).  Returns the
-        number of buffers newly copied.  Incremental across streaming
-        generations (identity keying), refcounted across FDbs that share
-        Shards, released by a finalizer when the FDb is collected.  (The
-        JAX package also primes bitmaps and spacetime postings for its
-        device ``postings_bitmap``; no ported op reads them.)"""
+        track's packed refine words (the refine stage), and each
+        spacetime index's per-doc track spans (``postings_bitmap``).
+        Returns the number of buffers newly copied.  Incremental across
+        streaming generations (identity keying), refcounted across FDbs
+        that share Shards, released by a finalizer when the FDb is
+        collected.  (The
+        JAX package also primes bitmaps and the spacetime postings; no
+        ported op reads them.)"""
         with self._prime_lock:
             if db in self._primed_fdbs:
                 return 0
@@ -677,8 +702,9 @@ class TorchBackend(ExecBackend):
                     primed.append(col.values)
                     if col.row_splits is not None:
                         primed.append(col.row_splits)
-                for (path, kind) in shard.indexes:
+                for (path, kind), idx in shard.indexes.items():
                     if kind == "spacetime":
+                        primed.extend((idx.t_min, idx.t_max))
                         pts, rows = self._track_pack(shard.batch, path,
                                                      pin=True)
                         if pts is not None:
@@ -746,6 +772,79 @@ class TorchBackend(ExecBackend):
         return ((hi.view(np.uint32).astype(np.uint64) << np.uint64(32))
                 | lo.view(np.uint32).astype(np.uint64)).T.copy()
 
+    @classmethod
+    def _host_tables(cls, cand, hi, lo, lhi=None, llo=None, cnt=None):
+        """One shard's host reduction tables from its [C, n] word planes:
+        the first-hit uint64 [n, C] table, and with the analytics planes
+        ``(first, last, count)`` (last-hit uint64, int64 counts) — set to
+        the no-hit identities outside ``cand`` (byte parity with the
+        restricted host oracle, which never evaluates those docs)."""
+        first = cls._u64_table(hi, lo)
+        off = None if cand is None else ~np.asarray(cand, dtype=bool)
+        if off is not None:
+            first[off, :] = FIRST_HIT_NONE
+        if cnt is None:
+            return first
+        last = cls._u64_table(lhi, llo)
+        count = cnt.T.astype(np.int64)
+        if off is not None:
+            last[off, :] = LAST_HIT_NONE
+            count[off, :] = 0
+        return first, last, count
+
+    def refine_tracks(self, batch, path, constraints, candidates=None,
+                      edges=(), with_first_hits: bool = False,
+                      min_counts=None, dwells=None,
+                      with_analytics: bool = False):
+        """One single-shard ``refine_tracks`` launch over the full shard
+        track (device-resident when primed), AND-combined with
+        ``candidates`` on the host — byte-equal to the restricted numpy
+        oracle because a doc's verdict is independent of other docs.
+        Ordering edges are a device-side compare over the first-hit
+        tables of the same launch; count/dwell reductions (or
+        ``with_analytics``) pull the reduction tables and recompute the
+        verdict host-side (``exec.refine.reduction_verdict``).  Declines
+        to the host oracle on 0 or >30 constraints, an empty shard or a
+        missing track, as the JAX package does."""
+        constraints = list(constraints)
+        edges = [tuple(e) for e in edges]
+        pts = rows = None
+        if constraints and len(constraints) <= MAX_CONSTRAINTS and batch.n:
+            pts, rows = self._track_pack(batch, path)
+        if pts is None:
+            return super().refine_tracks(batch, path, constraints,
+                                         candidates, edges=edges,
+                                         with_first_hits=with_first_hits,
+                                         min_counts=min_counts,
+                                         dwells=dwells,
+                                         with_analytics=with_analytics)
+        cand = None if candidates is None else np.asarray(candidates, bool)
+        args = (self._dev(pts), self._dev(rows),
+                self._up(pack_constraints(constraints)), batch.n)
+        if with_analytics or _has_red(min_counts, dwells):
+            planes = _ops.refine_tracks(*args, with_analytics=True)[1:]
+            first, last, count = self._host_tables(
+                cand, *(t.cpu().numpy() for t in planes))
+            mask = reduction_verdict(first, last, count, edges, min_counts,
+                                     dwells)
+            if cand is not None:
+                mask &= cand
+            if with_analytics:
+                return mask, first, last, count
+            return (mask, first) if with_first_hits else mask
+        need_fh = bool(edges) or with_first_hits
+        r = _ops.refine_tracks(*args, with_first_hits=need_fh)
+        mask_d = r[0] if need_fh else r
+        for i, j in edges:
+            mask_d = mask_d & _fused.first_hit_before(r[1], r[2], i, j)
+        mask = mask_d.cpu().numpy().copy()
+        if cand is not None:
+            mask &= cand
+        if with_first_hits:
+            return mask, self._host_tables(cand, r[1].cpu().numpy(),
+                                           r[2].cpu().numpy())
+        return mask
+
     def refine_tracks_batched(self, batches, path, constraints,
                               candidates_list=None, edges=(),
                               with_first_hits: bool = False,
@@ -810,16 +909,9 @@ class TorchBackend(ExecBackend):
                 cnt_h = cnt.cpu().numpy()
                 masks = []
                 for i, (n, cand) in enumerate(zip(ns, candidates_list)):
-                    first = self._u64_table(hi_h[i, :, :n], lo_h[i, :, :n])
-                    last = self._u64_table(lhi_h[i, :, :n], llo_h[i, :, :n])
-                    count = cnt_h[i, :, :n].T.astype(np.int64)
-                    if cand is not None:
-                        # byte parity with the restricted host oracle,
-                        # which never evaluates docs outside candidates
-                        off = ~np.asarray(cand, dtype=bool)
-                        first[off, :] = FIRST_HIT_NONE
-                        last[off, :] = LAST_HIT_NONE
-                        count[off, :] = 0
+                    first, last, count = self._host_tables(
+                        cand, hi_h[i, :, :n], lo_h[i, :, :n],
+                        lhi_h[i, :, :n], llo_h[i, :, :n], cnt_h[i, :, :n])
                     masks.append(reduction_verdict(first, last, count,
                                                    edges, min_counts,
                                                    dwells))
@@ -839,12 +931,8 @@ class TorchBackend(ExecBackend):
                 if with_first_hits:
                     hi_h, lo_h = r[1].cpu().numpy(), r[2].cpu().numpy()
                     for i, (n, cand) in enumerate(zip(ns, candidates_list)):
-                        first = self._u64_table(hi_h[i, :, :n],
-                                                lo_h[i, :, :n])
-                        if cand is not None:
-                            first[~np.asarray(cand, dtype=bool), :] = \
-                                FIRST_HIT_NONE
-                        tables.append(first)
+                        tables.append(self._host_tables(
+                            cand, hi_h[i, :, :n], lo_h[i, :, :n]))
         for m, cand in zip(masks, candidates_list):
             if cand is not None:
                 m &= np.asarray(cand, dtype=bool)
@@ -1060,6 +1148,233 @@ class TorchBackend(ExecBackend):
                              for slot in slot_host] if g else []))
         return n_cands, ids_list, seg
 
+    # --------------------------------------------- multi-query (coalesced)
+    def probe_shards_multi(self, fulls, probes_multi):
+        """Q queries' wave probes in ONE ``bitmap_intersect_batched``
+        launch: the query axis is folded into the stacked shard axis
+        ([Q·S, K, W]) — the AND-reduce is row-independent, so per-query
+        slices are byte-equal to the loop-over-queries oracle."""
+        fulls = list(fulls)
+        probes_multi = [[list(ps) for ps in probes]
+                        for probes in probes_multi]
+        n_q, n_s = len(probes_multi), len(fulls)
+        if n_q == 0:
+            return []
+        if n_s == 0:
+            return [[] for _ in range(n_q)]
+        if max(f.size for f in fulls) == 0:
+            return [[f.copy() for f in fulls] for _ in range(n_q)]
+        stack = self._probe_stack(fulls * n_q,
+                                  [ps for probes in probes_multi
+                                   for ps in probes])
+        bms, _counts = _ops.bitmap_intersect_batched(self._up(stack))
+        bms = to_host(bms, np.uint32)
+        return [[bms[q * n_s + i, :f.size].copy()
+                 for i, f in enumerate(fulls)] for q in range(n_q)]
+
+    def refine_tracks_multi(self, batches, path, constraints_list,
+                            candidates_lists=None, edges_list=None,
+                            with_first_hits: bool = False,
+                            min_counts_list=None, dwells_list=None):
+        """Q coalesced queries' refine in ONE ``refine_tracks_multi``
+        launch: the wave's track buffers are stacked once and shared, the
+        per-query constraint tables ride a leading query axis (padded to
+        a common C/R by ``exec.refine.pack_constraints_multi``); each
+        query's edges are compared on the device against its slice of the
+        first-hit tables, and reductions recompute its verdict host-side
+        from its slice with the pad constraints cut off.  Falls back to
+        the loop-over-queries oracle when a query has 0 or >30
+        constraints, a shard lacks a packed track, or the wave has no
+        docs or points, as the JAX package does."""
+        batches = list(batches)
+        constraints_list = [list(c) for c in constraints_list]
+        n_q = len(constraints_list)
+        if candidates_lists is None:
+            candidates_lists = [None] * n_q
+        if edges_list is None:
+            edges_list = [()] * n_q
+        edges_list = [tuple(tuple(e) for e in es) for es in edges_list]
+        if min_counts_list is None:
+            min_counts_list = [None] * n_q
+        if dwells_list is None:
+            dwells_list = [None] * n_q
+
+        def fallback():
+            return super(TorchBackend, self).refine_tracks_multi(
+                batches, path, constraints_list, candidates_lists,
+                edges_list, with_first_hits=with_first_hits,
+                min_counts_list=min_counts_list, dwells_list=dwells_list)
+
+        if n_q == 0 or not batches or any(
+                not c or len(c) > MAX_CONSTRAINTS for c in constraints_list):
+            return fallback()
+        packs = [self._track_pack(b, path) for b in batches]
+        if any(pts is None for pts, _ in packs):
+            return fallback()
+        ns = [b.n for b in batches]
+        n_max = max(ns)
+        if n_max == 0 or max(pts.shape[1] for pts, _ in packs) == 0:
+            return fallback()
+        pts_stack, rows_stack = self._stack_tracks(packs)
+        cov = self._up(pack_constraints_multi(constraints_list))
+        cands_q = [c if c is not None else [None] * len(batches)
+                   for c in candidates_lists]
+        if any(_has_red(mc, dw)
+               for mc, dw in zip(min_counts_list, dwells_list)):
+            # one analytics launch; every query's verdict is recomputed
+            # host-side from its slice of the reduction tables (pad
+            # constraints sliced off, so vacuous k=0 stays vacuous)
+            planes = [t.cpu().numpy() for t in _ops.refine_tracks_multi(
+                pts_stack, rows_stack, cov, n_max, with_analytics=True)[1:]]
+            results = []
+            for q in range(n_q):
+                c_q = len(constraints_list[q])
+                masks, tables = [], []
+                for i, (n, cand) in enumerate(zip(ns, cands_q[q])):
+                    first, last, count = self._host_tables(
+                        cand, *(pl[q, i, :c_q, :n] for pl in planes))
+                    m = reduction_verdict(first, last, count, edges_list[q],
+                                          min_counts_list[q],
+                                          dwells_list[q])
+                    if cand is not None:
+                        m &= np.asarray(cand, dtype=bool)
+                    masks.append(m)
+                    tables.append(first)
+                results.append((masks, tables) if with_first_hits
+                               else masks)
+            return results
+        need_fh = with_first_hits or any(edges_list)
+        r = _ops.refine_tracks_multi(pts_stack, rows_stack, cov, n_max,
+                                     with_first_hits=need_fh)
+        out_d = r
+        if need_fh:
+            out_d, fh_hi, fh_lo = r
+            per_q = []
+            for q, edges in enumerate(edges_list):
+                m = out_d[q]
+                for i, j in edges:
+                    m = m & _fused.first_hit_before(fh_hi[q], fh_lo[q], i, j)
+                per_q.append(m)
+            out_d = torch.stack(per_q)
+        out = out_d.cpu().numpy()
+        if with_first_hits:
+            hi_h, lo_h = fh_hi.cpu().numpy(), fh_lo.cpu().numpy()
+        results = []
+        for q in range(n_q):
+            masks = [out[q, i, :n].copy() for i, n in enumerate(ns)]
+            for m, cand in zip(masks, cands_q[q]):
+                if cand is not None:
+                    m &= np.asarray(cand, dtype=bool)
+            if with_first_hits:
+                # only the query's real constraints (pad rows cut off)
+                c_q = len(constraints_list[q])
+                tables = [self._host_tables(cand, hi_h[q, i, :c_q, :n],
+                                            lo_h[q, i, :c_q, :n])
+                          for i, (n, cand) in enumerate(zip(ns, cands_q[q]))]
+                results.append((masks, tables))
+            else:
+                results.append(masks)
+        return results
+
+    def run_wave_fused_multi(self, shards, probes_multi, refines,
+                             prefetch_shards=None):
+        """Q coalesced selection queries through one wave in ONE
+        ``run_wave_fused_multi`` dispatch (``kernels.fused``): per-query
+        probe stacks ride a leading query axis folded into the stacked
+        probe and compact kernels, the per-query constraint tables a
+        leading axis of the multi-query refine kernel, and the wave's
+        track buffers are shared.  Declines (``None``; the server then
+        runs each query alone) where the JAX package does: a mixed
+        refine/no-refine group or mixed paths, a query with 0 or >30
+        constraints or with only vacuous (k=0) constraints, a shard
+        without a packed track, or a wave whose tracks are all empty."""
+        shards = list(shards)
+        probes_multi = [[list(ps) for ps in probes]
+                        for probes in probes_multi]
+        n_q = len(probes_multi)
+        if n_q == 0:
+            return []
+        if not shards:
+            return [([], []) for _ in range(n_q)]
+        refines = list(refines)
+        has_refine = any(r is not None for r in refines)
+        packs = None
+        empty = tuple(() for _ in range(n_q))
+        mcs_multi, dws_multi, edges_multi = empty, empty, empty
+        if has_refine:
+            if not all(r is not None for r in refines) \
+                    or len({r.path for r in refines}) != 1:
+                return None
+            path = refines[0].path
+            cons_list = [list(r.constraints) for r in refines]
+            if any(not c or len(c) > MAX_CONSTRAINTS for c in cons_list):
+                return None
+            mcs = tuple(tuple(int(k) for k in
+                              (getattr(r, "min_counts", None) or ()))
+                        for r in refines)
+            dws = tuple(tuple(None if d is None else float(d) for d in
+                              (getattr(r, "dwells", None) or ()))
+                        for r in refines)
+            if any(_has_red(mc, dw) for mc, dw in zip(mcs, dws)):
+                mcs_multi, dws_multi = mcs, dws
+            for mc, dw in zip(mcs, dws):
+                if mc and all(k <= 0 for k in mc) \
+                        and not any(d is not None for d in dw):
+                    # an all-vacuous query passes docs with no points; the
+                    # always-hit pad constraints cannot express that
+                    return None
+            packs = [self._track_pack(sh.batch, path) for sh in shards]
+            if any(p is None for p, _ in packs):
+                return None
+            edges_multi = tuple(tuple(tuple(e) for e in r.edges)
+                                for r in refines)
+        ns = [sh.n for sh in shards]
+        n_max = max(ns)
+        fulls = [sh.all_bitmap() for sh in shards]
+        pre_refine = refines[0] if has_refine else None
+        if n_max == 0 or max(f.size for f in fulls) == 0:
+            # all-empty wave: still one dispatch, so the coalesced
+            # ⌈shards/wave⌉ total-launch contract stays exact
+            _ops.record_launch("run_wave_fused_multi")
+            if prefetch_shards:
+                self.prefetch_wave(prefetch_shards, pre_refine)
+            return [([0] * len(shards),
+                     [np.zeros(0, dtype=np.int64) for _ in shards])
+                    for _ in range(n_q)]
+        if has_refine and max(p.shape[1] for p, _ in packs) == 0:
+            return None
+        stack = self._probe_stack(fulls * n_q, [ps for probes in probes_multi
+                                                for ps in probes])
+        probe_dev = self._up(stack.reshape((n_q, len(shards))
+                                           + stack.shape[1:]))
+        ns_dev = self._up(np.asarray(ns, dtype=np.int32))
+        pts_stack = rows_stack = cov_dev = None
+        if has_refine:
+            pts_stack, rows_stack = self._refine_stack(shards, packs, path)
+            cov_dev = self._up(pack_constraints_multi(cons_list))
+        cand, sel_idx, sel_counts = _ops.run_wave_fused_multi(
+            probe_dev, ns_dev, pts_stack, rows_stack, cov_dev,
+            num_docs=n_max, edges_multi=edges_multi,
+            min_counts_multi=mcs_multi, dwells_multi=dws_multi)
+        # stage wave k+1's buffers before wave k's outputs sync to host
+        if prefetch_shards:
+            self.prefetch_wave(prefetch_shards, pre_refine)
+        cand_h = cand.cpu().numpy()
+        idx_h = sel_idx.cpu().numpy()
+        counts_h = sel_counts.cpu().numpy()
+        return [([int(c) for c in cand_h[q]],
+                 [idx_h[q, i, :int(counts_h[q, i])].astype(np.int64)
+                  for i in range(len(shards))]) for q in range(n_q)]
+
+    def postings_bitmap(self, ids, t_min, t_max, t0, t1, n_docs):
+        """Postings OR + span prune as one device pass over the resident
+        ``t_min``/``t_max`` buffers (``kernels.fused.postings_bitmap``);
+        the per-shard probe of the retry path reaches it."""
+        bm = _ops.postings_bitmap(
+            self._up(np.asarray(ids, dtype=np.int64)), self._dev(t_min),
+            self._dev(t_max), float(t0), float(t1), n_docs)
+        return to_host(bm, np.uint32)
+
     def prefetch_wave(self, shards, refine=None, agg=None) -> None:
         """Stage the next wave's keyed stacked buffers (refine point
         stacks, offset group codes, value stacks) so its fused dispatch
@@ -1094,23 +1409,9 @@ class TorchBackend(ExecBackend):
     def merge_partials(self, states, minmax=(), parts=None):
         raise _not_ported("merge_partials", "ROADMAP.md queue A item 6")
 
-    def postings_bitmap(self, ids, t_min, t_max, t0, t1, n_docs):
-        raise _not_ported("postings_bitmap", "ROADMAP.md queue A item 5")
 
     def segment_hll(self, codes, reg_idx, ranks, num_groups, num_regs):
         raise _not_ported("segment_hll", "ROADMAP.md queue A item 5")
-
-    def probe_shards_multi(self, fulls, probes_multi):
-        raise _not_ported("probe_shards_multi", "ROADMAP.md queue A item 7")
-
-    def refine_tracks_multi(self, *args, **kw):
-        raise _not_ported("refine_tracks_multi",
-                          "ROADMAP.md queue A item 7, § B "
-                          "refine.refine_tracks_multi")
-
-    def run_wave_fused_multi(self, *args, **kw):
-        raise _not_ported("run_wave_fused_multi",
-                          "ROADMAP.md queue A item 7")
 
 
 # --------------------------------------------------------------------------

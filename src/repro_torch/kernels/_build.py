@@ -48,10 +48,14 @@ BUILD_DIR = _HERE / "build"
 #: kernel library name → its C entry points' ctypes signatures
 #: (``p`` pointer or stream, ``i`` int); every entry returns an int error
 SOURCES: Dict[str, Dict[str, str]] = {
-    "bitset": {"repro_bitmap_intersect_batched": "pppiiip"},
-    "compact": {"repro_compact_batched": "pppiip"},
+    "bitset": {"repro_bitmap_intersect_batched": "pppiiip",
+               "repro_bitmap_intersect": "pppiip",
+               "repro_bitset_binary": "pppiip"},
+    "compact": {"repro_compact_batched": "pppiip",
+                "repro_mask_scan": "ppppiip"},
     "segment_agg": {"repro_segment_agg": "ppiipppp"},
-    "refine": {"repro_refine_tracks_batched": "pppiiiiiippppp"},
+    "refine": {"repro_refine_tracks_batched": "pppiiiiiippppp",
+               "repro_refine_tracks_multi": "pppiiiiiiippppp"},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

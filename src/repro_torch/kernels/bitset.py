@@ -1,9 +1,14 @@
-"""Wave-stacked bitmap AND-reduce with per-shard popcounts.
+"""Bitmap kernels: the wave-stacked and the single-shard AND-reduce with
+popcounts, and word-wise bitmap algebra.
 
-The wrapper of ``csrc/bitset.cu`` (``repro_bitmap_intersect_batched``),
-the port of the TPU kernel ``repro/kernels/bitset.py``
-``bitmap_intersect_batched``.  CUDA tensors launch the kernel; CPU
-tensors run the plain version (``ref.bitmap_intersect_batched_ref``).
+The wrappers of ``csrc/bitset.cu``, the ports of the TPU kernels in
+``repro/kernels/bitset.py``: ``bitmap_intersect_batched``
+(``repro_bitmap_intersect_batched``), ``bitmap_intersect``
+(``repro_bitmap_intersect``) and ``bitset_binary``
+(``repro_bitset_binary``).  CUDA tensors launch the kernels; CPU tensors
+run the plain versions (``ref.bitmap_intersect_batched_ref``,
+``ref.bitmap_intersect_ref``, ``ref.bitset_binary_ref``).  uint32 words
+travel as int32 tensors holding the same bits.
 """
 from __future__ import annotations
 
@@ -12,7 +17,11 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["bitmap_intersect_batched"]
+__all__ = ["bitmap_intersect_batched", "bitmap_intersect", "bitset_binary",
+           "BINARY_OPS"]
+
+#: bitset_binary's ops, by their code in the kernel
+BINARY_OPS = {"and": 0, "or": 1, "andnot": 2}
 
 
 def bitmap_intersect_batched(stack: torch.Tensor):
@@ -34,3 +43,41 @@ def bitmap_intersect_batched(stack: torch.Tensor):
                   "repro_bitmap_intersect_batched", stack.device,
                   stack, out, counts, s, k, w)
     return out, counts
+
+
+def bitmap_intersect(stack: torch.Tensor):
+    """[K, W] uint32 words (int32 bits; K ≥ 1) → (AND over K [W] int32,
+    total popcount as an int32 scalar tensor)."""
+    _build.require(stack, "stack", torch.int32, 2)
+    k, w = stack.shape
+    if k < 1:
+        raise ValueError("bitmap_intersect needs K >= 1 bitmaps")
+    if stack.device.type == "cpu":
+        return _ref.bitmap_intersect_ref(stack)
+    if w == 0:
+        return (torch.zeros((0,), dtype=torch.int32, device=stack.device),
+                torch.zeros((), dtype=torch.int32, device=stack.device))
+    out = torch.empty((w,), dtype=torch.int32, device=stack.device)
+    count = torch.empty((1,), dtype=torch.int32, device=stack.device)
+    _build.launch("bitmap_intersect", "bitset", "repro_bitmap_intersect",
+                  stack.device, stack, out, count, k, w)
+    return out, count[0]
+
+
+def bitset_binary(a: torch.Tensor, b: torch.Tensor, op: str = "and"):
+    """Two [W] uint32 word arrays (int32 bits) → [W] int32: ``and``,
+    ``or`` or ``andnot`` (a & ~b)."""
+    _build.require(a, "a", torch.int32, 1)
+    _build.require(b, "b", torch.int32, 1)
+    if op not in BINARY_OPS:
+        raise ValueError(f"bitset_binary: unknown op {op!r}")
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError("bitset_binary: a and b differ in shape or device")
+    if a.device.type == "cpu":
+        return _ref.bitset_binary_ref(a, b, op)
+    w = int(a.shape[0])
+    out = torch.empty((w,), dtype=torch.int32, device=a.device)
+    if w:
+        _build.launch("bitset_binary", "bitset", "repro_bitset_binary",
+                      a.device, a, b, out, w, BINARY_OPS[op])
+    return out

@@ -1,11 +1,15 @@
-"""Wave-stacked stream compaction: ascending ids of each shard's set mask
-entries, -1 padded, plus counts.
+"""Stream compaction: ascending ids of set mask entries, -1 padded, plus
+counts — per shard of a wave, or over one mask — and one mask's exclusive
+prefix sum.
 
-The wrapper of ``csrc/compact.cu`` (``repro_compact_batched``), the port
-of the TPU kernel ``repro/kernels/compact.py`` ``mask_prefix_sum_batched``
-+ ``compact_batched``.  CUDA tensors launch the kernel; CPU tensors run
-the plain version (``ref.compact_batched_ref``).  Both give the TPU
-kernel's output byte for byte.
+The wrappers of ``csrc/compact.cu``, the ports of the TPU kernels in
+``repro/kernels/compact.py``: ``compact_batched``
+(``repro_compact_batched``; TPU ``mask_prefix_sum_batched`` +
+``compact_batched``) and ``mask_prefix_sum`` / ``compact``
+(``repro_mask_scan``, a multi-block scan of one mask).  CUDA tensors
+launch the kernels; CPU tensors run the plain versions
+(``ref.compact_batched_ref``, ``ref.mask_prefix_sum_ref``,
+``ref.compact_ref``).  All give the TPU kernels' output byte for byte.
 """
 from __future__ import annotations
 
@@ -14,7 +18,10 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["compact_batched"]
+__all__ = ["compact_batched", "mask_prefix_sum", "compact", "SCAN_TILE"]
+
+#: mask rows per block of the single-mask scan (256 threads × 16 bytes)
+SCAN_TILE = 4096
 
 
 def compact_batched(masks: torch.Tensor):
@@ -33,3 +40,37 @@ def compact_batched(masks: torch.Tensor):
     _build.launch("compact_batched", "compact", "repro_compact_batched",
                   masks.device, masks, idx, counts, s, n)
     return idx, counts
+
+
+def _mask_scan(mask: torch.Tensor, ids: bool, counter: str):
+    """One ``repro_mask_scan`` call: (out [N] int32, count int32 scalar)."""
+    n = int(mask.shape[0])
+    dev = mask.device
+    if n == 0:
+        return (torch.zeros((0,), dtype=torch.int32, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev))
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((2 * -(-n // SCAN_TILE),), dtype=torch.int32,
+                          device=dev)
+    _build.launch(counter, "compact", "repro_mask_scan", dev, mask, out,
+                  count, scratch, n, int(ids))
+    return out, count[0]
+
+
+def mask_prefix_sum(mask: torch.Tensor):
+    """mask [N] bool → (exclusive prefix count [N] int32, count int32
+    scalar)."""
+    _build.require(mask, "mask", torch.bool, 1)
+    if mask.device.type == "cpu":
+        return _ref.mask_prefix_sum_ref(mask)
+    return _mask_scan(mask, False, "mask_prefix_sum")
+
+
+def compact(mask: torch.Tensor):
+    """mask [N] bool → (ascending ids of set entries [N] int32, -1
+    padded; count int32 scalar)."""
+    _build.require(mask, "mask", torch.bool, 1)
+    if mask.device.type == "cpu":
+        return _ref.compact_ref(mask)
+    return _mask_scan(mask, True, "compact")

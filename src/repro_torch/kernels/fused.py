@@ -26,6 +26,13 @@ survivor row ids, and ``segs`` a list of ``(count, sum, sumsq)`` triples
 (5-tuples with per-group min/max for ``minmax`` slots) over the
 wave-global group space (``None`` without aggregation).
 
+``run_wave_fused_multi`` is the serve layer's coalesced dispatch: Q
+queries' probe stacks [Q, S, K, W] and constraint tables [Q, C, 8, R]
+against one wave's shared tracks.  The query axis is folded into the shard
+axis for the probe and compact kernels ([Q·S, K, W], [Q·S, N]) and leads
+through the multi-query refine kernel; per-query edges and reduction
+verdicts run on the device, with no host sync between stages.
+
 ``profile=True`` synchronises after each stage and records its wall-clock
 into :func:`stage_times`.  This module never imports ``kernels.ops``
 (ops wraps *it* and owns launch counting).
@@ -44,8 +51,9 @@ from . import ref as _ref
 from . import refine as _refine
 from . import segment_agg as _seg
 
-__all__ = ["run_wave_fused", "first_hit_before", "record_stage",
-           "stage_times", "reset_stage_times"]
+__all__ = ["run_wave_fused", "run_wave_fused_multi", "postings_bitmap",
+           "first_hit_before", "record_stage", "stage_times",
+           "reset_stage_times"]
 
 
 # --------------------------------------------------------------------------
@@ -230,3 +238,93 @@ def run_wave_fused(probe_stack, ns, pts=None, rows=None, cov=None,
             _sync(dev)
             record_stage("agg", (clock() - t0) * 1e3)
     return cand, sel_idx, sel_counts, segs
+
+
+# --------------------------------------------------------------------------
+# Multi-query fused wave — the serve layer's coalesced dispatch
+# --------------------------------------------------------------------------
+
+def _refine_multi_stage(pts, rows, cov, num_docs: int, edges_multi,
+                        min_counts_multi=(), dwells_multi=()):
+    """Query-axis refine: cov [Q, C, 8, R] → masks [Q, S, num_docs], each
+    query's ordering edges applied against its own slice of the first-hit
+    tables.  Queries carrying count/dwell reductions get their verdict
+    recomputed from their slice of the analytics tables instead — same
+    launch."""
+    wa = any(_has_reductions(mc, ()) for mc in min_counts_multi) \
+        or any(_has_reductions((), dw) for dw in dwells_multi)
+    wf = any(len(e) > 0 for e in edges_multi) and not wa
+    r = _refine.refine_tracks_multi(pts, rows, cov, num_docs,
+                                    with_first_hits=wf, with_analytics=wa)
+    if not (wa or wf):
+        return r
+    out, fh_hi, fh_lo = r[:3]
+    per_q = []
+    for qi, edges in enumerate(edges_multi):
+        mc = min_counts_multi[qi] if qi < len(min_counts_multi) else ()
+        dw = dwells_multi[qi] if qi < len(dwells_multi) else ()
+        if wa and _has_reductions(mc, dw):
+            _, _, _, lh_hi, lh_lo, cnt = r
+            m = _reduction_verdict(fh_hi[qi], fh_lo[qi], lh_hi[qi],
+                                   lh_lo[qi], cnt[qi], edges, mc, dw)
+        else:
+            m = out[qi]
+            for i, j in edges:       # A-then-B: first hit of i before j's
+                m = m & first_hit_before(fh_hi[qi], fh_lo[qi], i, j)
+        per_q.append(m)
+    return torch.stack(per_q)
+
+
+def run_wave_fused_multi(probe_stacks, ns, pts=None, rows=None, cov=None,
+                         *, num_docs: int, edges_multi=(),
+                         min_counts_multi=(), dwells_multi=()):
+    """Q coalesced queries through one wave (see module docstring).
+
+    ``probe_stacks`` [Q, S, K, W] int32 words — each query's wave-stacked
+    probe bitmaps (pad rows copies of row 0); ``cov`` [Q, C, 8, R] —
+    per-query constraint tables padded to a common C/R, or ``None`` (with
+    ``pts``/``rows``) without a refine stage.  ``edges_multi`` is one edge
+    tuple per query, ``min_counts_multi``/``dwells_multi`` one reduction
+    tuple per query (pad constraints keep the k=1 / no-dwell defaults).
+    Returns ``(cand [Q, S], sel_idx [Q, S, N], sel_counts [Q, S])``."""
+    edges_multi = tuple(tuple(tuple(e) for e in es) for es in edges_multi)
+    min_counts_multi = tuple(tuple(int(k) for k in mc)
+                             for mc in min_counts_multi)
+    dwells_multi = tuple(tuple(None if d is None else float(d) for d in dw)
+                         for dw in dwells_multi)
+    q, s = int(probe_stacks.shape[0]), int(probe_stacks.shape[1])
+    flat = probe_stacks.reshape((q * s,) + tuple(probe_stacks.shape[2:]))
+    bm, _ = _bitset.bitmap_intersect_batched(flat)
+    mask = _mask_stage(bm, ns.repeat(q), num_docs).reshape(q, s, num_docs)
+    cand = mask.sum(dim=2, dtype=torch.int32)
+    if pts is not None:
+        mask = mask & _refine_multi_stage(pts, rows, cov, num_docs,
+                                          edges_multi, min_counts_multi,
+                                          dwells_multi)
+    sel_idx, sel_counts = _compact.compact_batched(
+        mask.reshape(q * s, num_docs))
+    return (cand, sel_idx.reshape(q, s, num_docs),
+            sel_counts.reshape(q, s))
+
+
+# --------------------------------------------------------------------------
+# Postings OR — SpaceTimeIndex.lookup's tail behind the seam
+# --------------------------------------------------------------------------
+
+def postings_bitmap(ids, t_min, t_max, t0: float, t1: float,
+                    n_docs: int) -> torch.Tensor:
+    """OR doc ``ids`` [n] int64 into a word bitmap and prune docs whose
+    float64 ``[t_min, t_max]`` track span misses ``[t0, t1]`` → [W]
+    int32 words in ``bitmap_from_ids``' layout (doc 32·w + b is bit b of
+    word w).  The JAX package lowers this to plain jnp (a scatter-OR has
+    no Pallas kernel), so it is plain PyTorch here too."""
+    dev = t_min.device
+    nw = (n_docs + 31) // 32
+    if n_docs <= 0:
+        return torch.zeros((0,), dtype=torch.int32, device=dev)
+    keep = torch.zeros(nw * 32, dtype=torch.bool, device=dev)
+    keep[ids] = True                              # ids < n_docs
+    keep[:n_docs] &= (t_min <= t1) & (t_max >= t0)
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    words = (keep.reshape(nw, 32).to(torch.int64) << shifts).sum(dim=1)
+    return words.to(torch.int32)          # low 32 bits: the uint32 word

@@ -25,9 +25,11 @@ from . import fused as _fused
 from . import refine as _refine
 from . import segment_agg as _seg
 
-__all__ = ["bitmap_intersect_batched", "compact_batched", "segment_agg",
-           "refine_tracks_batched", "run_wave_fused", "launch_counts",
-           "reset_launch_counts", "record_launch"]
+__all__ = ["bitmap_binary", "bitmap_intersect", "bitmap_intersect_batched",
+           "compact", "compact_batched", "segment_agg", "refine_tracks",
+           "refine_tracks_batched", "refine_tracks_multi", "run_wave_fused",
+           "run_wave_fused_multi", "postings_bitmap", "launch_counts", "reset_launch_counts",
+           "record_launch"]
 
 
 # --------------------------------------------------------------------------
@@ -62,10 +64,28 @@ def reset_launch_counts() -> None:
 # Ops
 # --------------------------------------------------------------------------
 
+def bitmap_binary(a, b, op: str = "and"):
+    """Word-wise ``and`` / ``or`` / ``andnot`` of two [W] bitmaps."""
+    record_launch("bitmap_binary")
+    return _bitset.bitset_binary(a, b, op)
+
+
+def bitmap_intersect(stack):
+    """Single-shard AND-reduce [K, W] → (bitmap [W], total popcount)."""
+    record_launch("bitmap_intersect")
+    return _bitset.bitmap_intersect(stack)
+
+
 def bitmap_intersect_batched(stack):
     """Wave-stacked AND-reduce [S, K, W] → (bitmaps [S, W], counts [S])."""
     record_launch("bitmap_intersect_batched")
     return _bitset.bitmap_intersect_batched(stack)
+
+
+def compact(mask):
+    """Single-mask compaction [N] → (indices [N], -1 padded; count)."""
+    record_launch("compact")
+    return _compact.compact(mask)
 
 
 def compact_batched(masks):
@@ -80,6 +100,17 @@ def segment_agg(group_ids, values, num_groups: int):
     return _seg.segment_agg(group_ids, values, num_groups)
 
 
+def refine_tracks(pts, rows, cov, num_docs: int,
+                  with_first_hits: bool = False,
+                  with_analytics: bool = False):
+    """One shard's refine [4, P] × [C, 8, R] → hit mask [num_docs]
+    (+ tables [C, num_docs], as ``refine_tracks_batched``)."""
+    record_launch("refine_tracks")
+    return _refine.refine_tracks(pts, rows, cov, num_docs,
+                                 with_first_hits=with_first_hits,
+                                 with_analytics=with_analytics)
+
+
 def refine_tracks_batched(pts, rows, cov, num_docs: int,
                           with_first_hits: bool = False,
                           with_analytics: bool = False):
@@ -90,6 +121,18 @@ def refine_tracks_batched(pts, rows, cov, num_docs: int,
     return _refine.refine_tracks_batched(pts, rows, cov, num_docs,
                                          with_first_hits=with_first_hits,
                                          with_analytics=with_analytics)
+
+
+def refine_tracks_multi(pts, rows, cov, num_docs: int,
+                        with_first_hits: bool = False,
+                        with_analytics: bool = False):
+    """Q coalesced queries' refine: shared [S, 4, P] tracks × per-query
+    [Q, C, 8, R] tables → hit masks [Q, S, num_docs] (+ tables
+    [Q, S, C, num_docs]) — one launch."""
+    record_launch("refine_tracks_multi")
+    return _refine.refine_tracks_multi(pts, rows, cov, num_docs,
+                                       with_first_hits=with_first_hits,
+                                       with_analytics=with_analytics)
 
 
 def run_wave_fused(probe_stack, ns, pts=None, rows=None, cov=None,
@@ -105,3 +148,26 @@ def run_wave_fused(probe_stack, ns, pts=None, rows=None, cov=None,
                                  min_counts=min_counts, dwells=dwells,
                                  total_groups=total_groups, profile=profile,
                                  minmax=minmax)
+
+
+def run_wave_fused_multi(probe_stacks, ns, pts=None, rows=None, cov=None, *,
+                         num_docs: int, edges_multi=(), min_counts_multi=(),
+                         dwells_multi=()):
+    """Q coalesced queries through one wave (probe → refine → compact) as
+    ONE logical dispatch — see ``kernels.fused``.  Q coalesced queries
+    still cost ⌈shards/wave⌉ **total** dispatches: the serve-layer
+    contract hangs off this counter."""
+    record_launch("run_wave_fused_multi")
+    return _fused.run_wave_fused_multi(probe_stacks, ns, pts, rows, cov,
+                                       num_docs=num_docs,
+                                       edges_multi=edges_multi,
+                                       min_counts_multi=min_counts_multi,
+                                       dwells_multi=dwells_multi)
+
+
+def postings_bitmap(ids, t_min, t_max, t0: float, t1: float, n_docs: int):
+    """Spacetime postings OR + track-span prune on the device (the tail of
+    ``SpaceTimeIndex.lookup``; plain PyTorch, as the JAX package's is
+    plain jnp) — one logical dispatch."""
+    record_launch("postings_bitmap")
+    return _fused.postings_bitmap(ids, t_min, t_max, t0, t1, n_docs)

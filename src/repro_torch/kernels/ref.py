@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four hand-written CUDA kernels.
+"""Plain PyTorch versions of the hand-written CUDA kernels.
 
 These are the semantic ground truth on this side of the port, the
 counterparts of ``repro/kernels/ref.py``'s jnp oracles.  The kernel
@@ -18,10 +18,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["key64", "split64", "popcount_words",
-           "bitmap_intersect_batched_ref", "compact_batched_ref",
-           "segment_agg_ref", "refine_tracks_batched_ref", "refine_no_hits",
-           "FH_NONE", "LH_NONE"]
+__all__ = ["key64", "split64", "popcount_words", "bitset_binary_ref",
+           "bitmap_intersect_ref", "bitmap_intersect_batched_ref",
+           "mask_prefix_sum_ref", "compact_ref", "compact_batched_ref",
+           "segment_agg_ref", "refine_tracks_batched_ref",
+           "refine_tracks_multi_ref", "refine_no_hits", "FH_NONE",
+           "LH_NONE"]
 
 _LO32 = 0xFFFFFFFF
 _TOP = -(1 << 63)                       # int64 with only bit 63 set
@@ -57,6 +59,26 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
 
 # ----------------------------------------------------------------- bitsets
 
+def bitset_binary_ref(a: torch.Tensor, b: torch.Tensor,
+                      op: str = "and") -> torch.Tensor:
+    """Word-wise bitmap algebra over two [W] word arrays: ``and``, ``or``
+    or ``andnot`` (a & ~b)."""
+    if op == "and":
+        return a & b
+    if op == "or":
+        return a | b
+    if op == "andnot":
+        return a & ~b
+    raise ValueError(f"bitset_binary: unknown op {op!r}")
+
+
+def bitmap_intersect_ref(stack: torch.Tensor):
+    """AND-reduce [K, W] probe words → (bitmap [W] int32, total popcount
+    as an int32 scalar)."""
+    bm, cnt = bitmap_intersect_batched_ref(stack[None])
+    return bm[0], cnt[0]
+
+
 def bitmap_intersect_batched_ref(stack: torch.Tensor):
     """AND-reduce [S, K, W] probe words → (bitmaps [S, W] int32,
     popcounts [S] int32)."""
@@ -68,6 +90,21 @@ def bitmap_intersect_batched_ref(stack: torch.Tensor):
 
 
 # ------------------------------------------------------------- compaction
+
+def mask_prefix_sum_ref(mask: torch.Tensor):
+    """mask [N] bool → (exclusive prefix count [N] int32, count as an
+    int32 scalar)."""
+    m = mask.to(torch.int32)
+    pos = (torch.cumsum(m, dim=0) - m).to(torch.int32)
+    return pos, m.sum(dtype=torch.int32)
+
+
+def compact_ref(mask: torch.Tensor):
+    """mask [N] bool → (ascending ids of set entries [N] int32, -1
+    padded; count as an int32 scalar)."""
+    idx, counts = compact_batched_ref(mask[None])
+    return idx[0], counts[0]
+
 
 def compact_batched_ref(masks: torch.Tensor):
     """masks [S, N] bool → (ascending ids of set entries [S, N] int32,
@@ -108,19 +145,22 @@ def segment_agg_ref(group_ids: torch.Tensor, values: torch.Tensor,
 
 # ------------------------------------------------------------ track refine
 
-def refine_no_hits(s: int, c: int, d: int, device, with_first_hits: bool,
-                   with_analytics: bool, mask: torch.Tensor):
-    """``mask`` with all-"no hit" reduction tables of the requested
-    shape — the refine output when no point can be evaluated."""
+def refine_no_hits(lead: tuple, c: int, d: int, device,
+                   with_first_hits: bool, with_analytics: bool,
+                   mask: torch.Tensor):
+    """``mask`` with all-"no hit" reduction tables of shape
+    ``(*lead, c, d)`` — the refine output when no point can be
+    evaluated."""
     if not (with_first_hits or with_analytics):
         return mask
-    fh = split64(torch.full((s, c, d), FH_NONE, dtype=torch.int64,
+    shape = (*lead, c, d)
+    fh = split64(torch.full(shape, FH_NONE, dtype=torch.int64,
                             device=device))
     if not with_analytics:
         return (mask, *fh)
-    lh = split64(torch.full((s, c, d), LH_NONE, dtype=torch.int64,
+    lh = split64(torch.full(shape, LH_NONE, dtype=torch.int64,
                             device=device))
-    cnt = torch.zeros((s, c, d), dtype=torch.int32, device=device)
+    cnt = torch.zeros(shape, dtype=torch.int32, device=device)
     return (mask, *fh, *lh, cnt)
 
 
@@ -149,7 +189,7 @@ def refine_tracks_batched_ref(pts: torch.Tensor, rows: torch.Tensor,
         # no constraints → vacuous truth
         fill = s > 0 and num_docs > 0 and c_n == 0
         mask = torch.full((s, num_docs), fill, dtype=torch.bool, device=dev)
-        return refine_no_hits(s, c_n, num_docs, dev, with_first_hits,
+        return refine_no_hits((s,), c_n, num_docs, dev, with_first_hits,
                               with_analytics, mask)
     key = key64(pts[:, 0], pts[:, 1]).reshape(-1)             # [S*P]
     t = key64(pts[:, 2], pts[:, 3]).reshape(-1)
@@ -195,3 +235,27 @@ def refine_tracks_batched_ref(pts: torch.Tensor, rows: torch.Tensor,
     if with_analytics:
         res += (*split64(torch.stack(lh, dim=1)), torch.stack(cnts, dim=1))
     return res
+
+
+def refine_tracks_multi_ref(pts: torch.Tensor, rows: torch.Tensor,
+                            cov: torch.Tensor, num_docs: int,
+                            with_first_hits: bool = False,
+                            with_analytics: bool = False):
+    """Refine for Q coalesced queries sharing one wave: cov [Q, C, 8, R]
+    (one :func:`refine_tracks_batched_ref` table per query) against
+    pts [S, 4, P] / rows [S, P] → masks [Q, S, num_docs] (+ tables
+    [Q, S, C, num_docs] under ``with_first_hits`` / ``with_analytics``,
+    in that function's order)."""
+    q_n, c_n = int(cov.shape[0]), int(cov.shape[1])
+    s = int(pts.shape[0])
+    if q_n == 0 or s == 0:
+        mask = torch.zeros((q_n, s, num_docs), dtype=torch.bool,
+                           device=pts.device)
+        return refine_no_hits((q_n, s), c_n, num_docs, pts.device,
+                              with_first_hits, with_analytics, mask)
+    outs = [refine_tracks_batched_ref(pts, rows, cov[q], num_docs,
+                                      with_first_hits, with_analytics)
+            for q in range(q_n)]
+    if not (with_first_hits or with_analytics):
+        return torch.stack(outs)
+    return tuple(torch.stack(planes) for planes in zip(*outs))

@@ -1,9 +1,11 @@
 """``TorchBackend`` ops held against the numpy oracles, op by op.
 
 ``TorchBackend(device="cpu")`` runs every kernel wrapper's plain PyTorch
-version; each wave op is compared with the port's copied ``NumpyBackend``
-and with the JAX package's ``NumpyBackend`` on the same inputs (made with
-numpy from a seed, or the same synthetic world built by both packages).
+version; each op — the wave ops, the single-shard seam and the
+multi-query (coalesced) ops — is compared with the port's copied
+``NumpyBackend`` and with the JAX package's ``NumpyBackend`` on the same
+inputs (made with numpy from a seed, or the same synthetic world built
+by both packages), and its logical launches are counted.
 Selections, masks and reduction tables are equal; with float64 staging
 on the CPU the aggregates are bit-equal too.
 """
@@ -258,11 +260,7 @@ def test_no_cpu_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("op,args", [
-    ("intersect_bitmaps", (None, [])), ("select_ids", (None, 0)),
-    ("compact_mask", (None,)), ("segment_aggregate", (None, None, 0)),
-    ("merge_partials", ([],)), ("postings_bitmap", (None,) * 6),
-    ("segment_hll", (None,) * 5), ("probe_shards_multi", ([], [])),
-    ("refine_tracks_multi", ()), ("run_wave_fused_multi", ()),
+    ("merge_partials", ([],)), ("segment_hll", (None,) * 5),
 ])
 def test_unported_ops_raise(cpu, op, args):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -274,6 +272,247 @@ def test_partition_context(cpu):
         pass
     with pytest.raises(NotImplementedError):
         cpu.partition_context(0, 2)
+
+
+# ----------------------------------------------------- single-shard seam
+
+@pytest.mark.parametrize("n", [1, 31, 64, 1000, 9999])
+@pytest.mark.parametrize("k", [0, 1, 4])
+def test_intersect_and_select_parity(cpu, n, k):
+    """One ``bitmap_intersect`` launch for K ≥ 1 probes (none for K = 0,
+    as the JAX package returns the valid-doc bitmap itself), then one
+    ``compact`` launch for the ids; equal to both numpy oracles."""
+    rng = np.random.default_rng(n + k)
+    full = bitmap_from_ids(np.arange(n), n)
+    probes = [bitmap_from_ids(rng.choice(n, size=max(1, n // 2),
+                                         replace=False), n)
+              for _ in range(k)]
+    ops.reset_launch_counts()
+    got = cpu.intersect_bitmaps(full, probes)
+    ids = cpu.select_ids(got, n)
+    assert ops.launch_counts() == ({"bitmap_intersect": 1, "compact": 1}
+                                   if k else {"compact": 1})
+    assert got.dtype == np.uint32 and ids.dtype == np.int64
+    for oracle in _backends(cpu)[1:]:
+        want = oracle.intersect_bitmaps(full, probes)
+        assert np.array_equal(got, want)
+        assert np.array_equal(ids, oracle.select_ids(want, n))
+
+
+@pytest.mark.parametrize("n,density", [(1, 0.0), (100, 0.5), (5000, 0.9),
+                                       (0, 0.5)])
+def test_compact_mask_parity(cpu, n, density):
+    mask = np.random.default_rng(n).random(n) < density
+    got = cpu.compact_mask(mask)
+    for oracle in _backends(cpu)[1:]:
+        want = oracle.compact_mask(mask)
+        assert got.dtype == want.dtype == np.int64
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,g", [(1, 1), (1000, 7), (20000, 300)])
+def test_segment_aggregate_parity(cpu, n, g):
+    """float64 staging on the CPU, row-order sums: bit-equal."""
+    rng = np.random.default_rng(g)
+    codes = np.where(rng.random(n) < .1, -1, rng.integers(0, g, n))
+    vals = rng.normal(50.0, 9.0, n)
+    ops.reset_launch_counts()
+    got = cpu.segment_aggregate(codes, vals, g)
+    assert ops.launch_counts() == {"segment_agg": 1}
+    for oracle in _backends(cpu)[1:]:
+        _assert_same(got, oracle.segment_aggregate(codes, vals, g))
+
+
+@pytest.mark.parametrize("kw", REFINE_KW)
+def test_refine_tracks_single_shard(cpu, trips, kw):
+    """The single-shard refine: one ``refine_tracks`` launch, masks and
+    tables restricted by candidates, equal to both numpy oracles."""
+    db, jdb = trips
+    rng = np.random.default_rng(8)
+    cons = _refine_args(db)
+    hits = 0
+    for i in range(db.num_shards):
+        sh, jsh = db.shards[i], jdb.shards[i]
+        full = NumpyBackend().refine_tracks(
+            sh.batch, "track", cons,
+            **{k: v for k, v in kw.items() if k in ("edges", "min_counts",
+                                                    "dwells")})
+        full = full[0] if isinstance(full, tuple) else full
+        for cand in (None, (rng.random(sh.n) < .6) | full):
+            ops.reset_launch_counts()
+            got = cpu.refine_tracks(sh.batch, "track", cons, cand, **kw)
+            assert ops.launch_counts() == {"refine_tracks": 1}
+            _assert_same(got, NumpyBackend().refine_tracks(
+                sh.batch, "track", cons, cand, **kw))
+            _assert_same(got, JNumpyBackend().refine_tracks(
+                jsh.batch, "track", cons, cand, **kw))
+        hits += int(full.sum())
+    assert hits > 0                          # the case discriminates
+
+
+def test_refine_tracks_single_shard_declines(cpu, trips):
+    """0 or more than 30 constraints, or a path without a track: the
+    host oracle, no launch."""
+    db, _ = trips
+    sh = db.shards[0]
+    for path, cons in (("track", []), ("track", _refine_args(db) * 16),
+                       ("nothere", _refine_args(db))):
+        ops.reset_launch_counts()
+        if path == "nothere":
+            with pytest.raises(KeyError):
+                cpu.refine_tracks(sh.batch, path, cons)
+        else:
+            _assert_same(cpu.refine_tracks(sh.batch, path, cons),
+                         NumpyBackend().refine_tracks(sh.batch, path, cons))
+        assert ops.launch_counts() == {}
+
+
+def test_postings_bitmap_parity(cpu, trips):
+    """The spacetime lookup through the seam (the retry path's probe)
+    equals the host lookup, bit for bit."""
+    db, _ = trips
+    region, t0, t1 = _refine_args(db)[0]
+    for sh in db.shards:
+        idx = sh.index("track", "spacetime")
+        ops.reset_launch_counts()
+        got = idx.lookup(region, t0, t1, backend=cpu)
+        assert ops.launch_counts() == {"postings_bitmap": 1}
+        want = idx.lookup(region, t0, t1)
+        assert got.dtype == np.uint32 and np.array_equal(got, want)
+
+
+# ------------------------------------------------ multi-query (coalesced)
+
+def _multi_setup(db, with_ordered=True):
+    """Three queries' constraint lists (1–2 constraints, one ordered)
+    and their probe bitmaps over every shard of ``db``."""
+    sf, bk, la = (city_region(c) for c in ("SF", "Berkeley", "LA"))
+    day = 2 * 86400.0
+    cons_list = [[(sf, day, day + 18 * 3600.0)],
+                 [(bk, day + 6 * 3600.0, day + 14 * 3600.0),
+                  (sf, day, day + 20 * 3600.0)],
+                 [(sf, day + 6 * 3600.0, day + 12 * 3600.0),
+                  (la, day, day + 86400.0)]]
+    edges_list = [(), (), ((0, 1),) if with_ordered else ()]
+    probes_multi = [[[sh.index("track", "spacetime").lookup(*c)
+                      for c in cons] for sh in db.shards]
+                    for cons in cons_list]
+    return cons_list, edges_list, probes_multi
+
+
+def test_probe_shards_multi(cpu, trips):
+    """Q queries' probes in one launch (query axis folded into shards),
+    per query equal to the loop-over-queries oracles."""
+    db, _ = trips
+    _, _, probes_multi = _multi_setup(db)
+    fulls = [sh.all_bitmap() for sh in db.shards]
+    ops.reset_launch_counts()
+    got = cpu.probe_shards_multi(fulls, probes_multi)
+    assert ops.launch_counts() == {"bitmap_intersect_batched": 1}
+    for oracle in _backends(cpu)[1:]:
+        _assert_same(got, oracle.probe_shards_multi(fulls, probes_multi))
+    assert cpu.probe_shards_multi(fulls, []) == []
+    assert cpu.probe_shards_multi([], probes_multi) == [[], [], []]
+
+
+@pytest.mark.parametrize("kw", [
+    {}, {"with_first_hits": True},
+    {"min_counts_list": [None, (2, 1), None]},
+    {"dwells_list": [(600.0,), None, None], "with_first_hits": True},
+])
+def test_refine_tracks_multi(cpu, trips, kw):
+    """One ``refine_tracks_multi`` launch for Q queries: masks (edges,
+    candidates, reductions) and first-hit tables with the pad
+    constraints cut off, equal to both loop-over-queries oracles."""
+    db, jdb = trips
+    cons_list, edges_list, _ = _multi_setup(db)
+    rng = np.random.default_rng(12)
+    cands = [[rng.random(sh.n) < .8 for sh in db.shards], None,
+             [None] + [rng.random(sh.n) < .5 for sh in db.shards[1:]]]
+    args = (cons_list, cands, edges_list)
+    ops.reset_launch_counts()
+    got = cpu.refine_tracks_multi([sh.batch for sh in db.shards], "track",
+                                  *args, **kw)
+    assert ops.launch_counts() == {"refine_tracks_multi": 1}
+    _assert_same(got, NumpyBackend().refine_tracks_multi(
+        [sh.batch for sh in db.shards], "track", *args, **kw))
+    _assert_same(got, JNumpyBackend().refine_tracks_multi(
+        [sh.batch for sh in jdb.shards], "track", *args, **kw))
+    masks = [q[0] if isinstance(q, tuple) else q for q in got]
+    assert all(any(m.any() for m in qm) for qm in masks)
+
+
+def test_refine_tracks_multi_declines(cpu, trips):
+    """A query with no constraint: the loop-over-queries oracle."""
+    db, _ = trips
+    cons_list, _, _ = _multi_setup(db)
+    batches = [sh.batch for sh in db.shards]
+    ops.reset_launch_counts()
+    got = cpu.refine_tracks_multi(batches, "track", cons_list + [[]])
+    assert "refine_tracks_multi" not in ops.launch_counts()
+    _assert_same(got, NumpyBackend().refine_tracks_multi(
+        batches, "track", cons_list + [[]]))
+
+
+def _refine_specs(cons_list, edges_list, min_counts=None, dwells=None):
+    from repro_torch.core.planner import RefineSpec
+    return [RefineSpec("track", tuple(c), tuple(e),
+                       min_counts=min_counts, dwells=dwells)
+            for c, e in zip(cons_list, edges_list)]
+
+
+@pytest.mark.parametrize("reduce", [False, True])
+def test_run_wave_fused_multi(cpu, trips, reduce):
+    """Q coalesced queries through one wave in one dispatch, per query
+    equal to the loop-over-queries oracles and to the single-query fused
+    path; the next wave is prefetched."""
+    db, _ = trips
+    cons_list, edges_list, probes_multi = _multi_setup(db)
+    refines = _refine_specs(cons_list, edges_list)
+    if reduce:
+        from dataclasses import replace
+        refines[1] = replace(refines[1], min_counts=(2, 1))
+        refines[0] = replace(refines[0], dwells=(600.0,))
+    shards = list(db.shards)
+    cpu.trace_events = []
+    ops.reset_launch_counts()
+    got = cpu.run_wave_fused_multi(shards, probes_multi, refines,
+                                   prefetch_shards=shards[:1])
+    assert ops.launch_counts() == {"run_wave_fused_multi": 1}
+    assert cpu.trace_events == [("prefetch", 1)]
+    cpu.trace_events = None
+    want = NumpyBackend().run_wave_fused_multi(shards, probes_multi,
+                                               refines)
+    _assert_same(got, want)
+    for q in range(3):
+        single = cpu.run_wave_fused(shards, probes_multi[q], refines[q])
+        _assert_same(got[q], single[:2])
+    assert all(sum(len(i) for i in ids) for _, ids in got)
+
+
+def test_run_wave_fused_multi_declines(cpu, trips):
+    """Mixed refine/no-refine groups, a query with only vacuous (k = 0)
+    constraints, and >30 constraints decline; an all-empty wave still
+    counts its one dispatch."""
+    db, _ = trips
+    cons_list, edges_list, probes_multi = _multi_setup(db)
+    refines = _refine_specs(cons_list, edges_list)
+    shards = list(db.shards)
+    ops.reset_launch_counts()
+    assert cpu.run_wave_fused_multi(shards, probes_multi,
+                                    [None] + refines[1:]) is None
+    vac = _refine_specs(cons_list[:1], [()], min_counts=(0,))
+    assert cpu.run_wave_fused_multi(shards, probes_multi[:1], vac) is None
+    wide = _refine_specs([cons_list[1] * 16], [()])
+    assert cpu.run_wave_fused_multi(shards, probes_multi[1:2], wide) is None
+    assert ops.launch_counts() == {}
+    w = generate_world(scale=0.1, seed=4)
+    empty = build_fdb("Empty", w["trips_schema"], [], num_shards=2)
+    got = cpu.run_wave_fused_multi(list(empty.shards), [[[], []]] * 2,
+                                   [None, None])
+    assert ops.launch_counts() == {"run_wave_fused_multi": 1}
+    assert len(got) == 2 and all(
+        c == [0, 0] and all(i.size == 0 for i in ids) for c, ids in got)
 
 
 def test_wave_launch_contract_counts(cpu, trips):

@@ -2,8 +2,8 @@
 
 Each kernel is held to its plain PyTorch version on the same CUDA inputs
 (exact, except float64 sums, which may differ by summation order only),
-and the fused wave runs end to end on the card against the port's numpy
-oracle.  Without a GPU every test here skips.  This file imports nothing
+and the fused wave and the coalescing query server run end to end on the
+card against the port's numpy oracle.  Without a GPU every test here skips.  This file imports nothing
 of ``jax`` or ``repro``, so a GPU machine without jax runs it with
 
     python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -18,7 +18,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.data.synthetic import city_region, generate_world  # noqa
 from repro_torch.exec import (Catalog, ExecConfig, NumpyBackend,  # noqa
                               TorchBackend)
-from repro_torch.exec.refine import pack_constraints, pack_track_points  # noqa
+from repro_torch.exec.refine import (pack_constraints,  # noqa: E402
+                                     pack_constraints_multi,
+                                     pack_track_points)
 from repro_torch.fdb import build_fdb                 # noqa: E402
 from repro_torch.geo import mercator as M             # noqa: E402
 from repro_torch.geo.areatree import AreaTree         # noqa: E402
@@ -41,9 +43,10 @@ def _words(a, dev):
                             .view(np.int32)).to(dev)
 
 
-def _refine_inputs(rng, shard_docs, dev):
+def _refine_inputs(rng, shard_docs, dev, n_ranges=(150, 150)):
     """Ragged shards of random tracks (negative and positive times) and
-    two multi-range constraints around sampled track keys."""
+    one constraint per ``n_ranges`` entry around sampled track keys;
+    returns ``(pts, rows, cov, constraints)``."""
     packs, keys = [], []
     for n in shard_docs:
         lens = rng.integers(0, 12, n)
@@ -56,9 +59,9 @@ def _refine_inputs(rng, shard_docs, dev):
         keys.append(M.latlng_to_morton(lat, lng))
     keys = np.concatenate(keys)
     cons = []
-    for _ in range(2):
-        pick = rng.choice(keys, 150)
-        width = rng.integers(1 << 20, 1 << 34, 150).astype(np.uint64)
+    for n_r in n_ranges:
+        pick = rng.choice(keys, n_r)
+        width = rng.integers(1 << 20, 1 << 34, n_r).astype(np.uint64)
         cons.append((AreaTree.from_ranges(pick - width // np.uint64(2),
                                           pick + width),
                      float(rng.uniform(-5e4, 0)),
@@ -70,14 +73,17 @@ def _refine_inputs(rng, shard_docs, dev):
         pts[i, :, :p.shape[1]] = p
         rows[i, :r.size] = r
     return (_words(pts, dev), torch.from_numpy(rows).to(dev),
-            _words(pack_constraints(cons), dev))
+            _words(pack_constraints(cons), dev), cons)
 
 
 @pytest.mark.parametrize("kernel", ["bitset", "compact", "segment_agg",
-                                    "refine"])
+                                    "refine", "refine_multi",
+                                    "bitmap_intersect", "mask_scan",
+                                    "bitset_binary"])
 def test_kernel_matches_plain_version(card, kernel):
     rng = np.random.default_rng(7)
     before = sum(_build.kernel_launches().values())
+    pairs = []
     if kernel == "bitset":
         stack = _words(rng.integers(0, 1 << 32, (5, 3, 65), dtype=np.uint64)
                        .astype(np.uint32), card)
@@ -99,14 +105,63 @@ def test_kernel_matches_plain_version(card, kernel):
             for a, b in zip(got[1:], want[1:]):
                 torch.testing.assert_close(a, b, rtol=1e-12, atol=0)
         pairs = []
-    else:
-        args = _refine_inputs(rng, [300, 120, 0, 33], card)
+    elif kernel == "refine":
+        args = _refine_inputs(rng, [300, 120, 0, 33], card)[:3]
         pairs = []
         for kw in ({}, {"with_first_hits": True}, {"with_analytics": True}):
             got = refine.refine_tracks_batched(*args, 300, **kw)
             want = ref.refine_tracks_batched_ref(*args, 300, **kw)
             pairs.append((got, want) if kw else ((got,), (want,)))
         assert pairs[0][0][0].any() and not pairs[0][0][0].all()
+    elif kernel == "refine_multi":
+        # three queries of 1, 2 and 3 constraints (pad constraints and
+        # pad range slots); the 3rd query's 5000 ranges push the table
+        # past shared memory, so the global-memory path runs too
+        pts, rows, _, cons = _refine_inputs(rng, [300, 120, 0, 33], card,
+                                            (150, 40, 5000))
+        for table in ([cons[:1], cons[:2], cons], [cons[:1], cons[1:2]]):
+            cov = _words(pack_constraints_multi(table), card)
+            pairs = []
+            for kw in ({}, {"with_first_hits": True},
+                       {"with_analytics": True}):
+                got = refine.refine_tracks_multi(pts, rows, cov, 300, **kw)
+                want = ref.refine_tracks_multi_ref(pts, rows, cov, 300, **kw)
+                pairs.append((got, want) if kw else ((got,), (want,)))
+            assert pairs[0][0][0].any() and not pairs[0][0][0].all()
+            torch.cuda.synchronize()
+            for got, want in pairs:
+                for a, b in zip(got, want):
+                    assert a.dtype == b.dtype and torch.equal(a, b)
+        pairs = []
+        # the single-shard wrapper is the batched kernel at S=1
+        one = refine.refine_tracks(pts[0], rows[0], _words(
+            pack_constraints(cons[:2]), card), 300, with_analytics=True)
+        want = ref.refine_tracks_batched_ref(pts[:1], rows[:1], _words(
+            pack_constraints(cons[:2]), card), 300, with_analytics=True)
+        pairs.append((one, tuple(w[0] for w in want)))
+    elif kernel == "bitmap_intersect":
+        for k, w in ((1, 31), (3, 65), (4, 100_003)):
+            stack = _words(rng.integers(0, 1 << 32, (k, w), dtype=np.uint64)
+                           .astype(np.uint32), card)
+            pairs.append((bitset.bitmap_intersect(stack),
+                          ref.bitmap_intersect_ref(stack)))
+    elif kernel == "mask_scan":
+        for n, density in ((1, 1.0), (4095, .5), (4097, .3),
+                           (900_001, .01), (70_000, .999)):
+            mask = torch.from_numpy(rng.random(n + 3) < density).to(card)
+            for m in (mask[:n], mask[3:]):   # aligned and unaligned bytes
+                pairs.append((compact.compact(m), ref.compact_ref(m)))
+                pairs.append((compact.mask_prefix_sum(m),
+                              ref.mask_prefix_sum_ref(m)))
+    else:
+        for w in (1, 7, 4096, 100_001):
+            a, b = (_words(rng.integers(0, 1 << 32, w + 1, dtype=np.uint64)
+                           .astype(np.uint32), card) for _ in range(2))
+            for op in bitset.BINARY_OPS:
+                # aligned (16-byte vectors) and offset (scalar) buffers
+                for x, y in ((a[:w], b[:w]), (a[1:], b[1:])):
+                    pairs.append(((bitset.bitset_binary(x, y, op),),
+                                  (ref.bitset_binary_ref(x, y, op),)))
     torch.cuda.synchronize()
     for got, want in pairs:
         for a, b in zip(got, want):
@@ -153,3 +208,43 @@ def test_fused_wave_on_card_matches_numpy_oracle(card):
                     assert abs(g[k] - v) <= 1e-6 * abs(v)
                 else:
                     assert g[k] == v
+
+
+def test_server_on_card_matches_numpy_oracle(card):
+    """Coalesced Tesseract queries (unordered, ordered, dwell) through
+    ``QueryServer`` on the card: one ``run_wave_fused_multi`` dispatch a
+    wave for the whole group, one multi-query refine launch a wave, and
+    each query's rows equal to the numpy oracle run alone."""
+    from repro_torch.core import Session, fdb
+    from repro_torch.serve import QueryServer
+    from repro_torch.tess import Tesseract
+    w = generate_world(scale=2.0, seed=1)
+    cat = Catalog()
+    cat.register(build_fdb("Trips", w["trips_schema"], w["trips"],
+                           num_shards=10))
+    day = 2 * 86400.0
+    legs = [(city_region(a), day + h * 3600, day + (h + 8) * 3600)
+            for a, h in (("SF", 5), ("Berkeley", 6), ("Fremont", 7),
+                         ("SF", 9))]
+    flows = [fdb("Trips").tesseract(Tesseract(*legs[0]).also(*legs[1])),
+             fdb("Trips").tesseract(Tesseract(*legs[2]).then(*legs[3])),
+             fdb("Trips").tesseract(Tesseract(*legs[0]).dwell(300.0)
+                                    .also(*legs[2])),
+             fdb("Trips").tesseract(Tesseract(*legs[3]))]
+    host = Session(catalog=cat, config=ExecConfig(backend=NumpyBackend()))
+    srv = QueryServer(catalog=cat, backend=TorchBackend(), cache=False,
+                      start=False)
+    futs = [srv.submit(f) for f in flows]
+    ops.reset_launch_counts()
+    _build.reset_kernel_launches()
+    srv.run_pending()
+    waves = math.ceil(cat.get("Trips").num_shards / 8)
+    assert ops.launch_counts() == {"run_wave_fused_multi": waves}
+    assert _build.kernel_launches()["refine_tracks_multi"] == waves
+    total = 0
+    for fut, flow in zip(futs, flows):
+        got, want = fut.result(60).to_records(), host.run(flow).to_records()
+        assert got == want
+        total += len(want)
+    assert total > 0
+    assert srv.stats()["coalesced_batches"] == 1

@@ -1,4 +1,4 @@
-"""The port's four kernels held against the JAX package's Pallas kernels.
+"""The port's kernels held against the JAX package's Pallas kernels.
 
 On the CPU every wrapper in ``repro_torch.kernels`` runs its plain PyTorch
 version; these tests hold those versions to the JAX kernels run in
@@ -18,9 +18,10 @@ import jax                                            # noqa: E402
 import jax.experimental                               # noqa: E402
 import jax.numpy as jnp                               # noqa: E402
 
+from repro.exec.backend import NumpyBackend as JNumpyBackend  # noqa: E402
 from repro.exec.refine import (f64_from_sort_key, f64_sort_key,  # noqa: E402
-                               pack_constraints, pack_track_points,
-                               refine_tracks_host)
+                               pack_constraints, pack_constraints_multi,
+                               pack_track_points, refine_tracks_host)
 from repro.fdb.index import bitmap_from_ids, mask_from_bitmap  # noqa: E402
 from repro.geo import mercator as M                   # noqa: E402
 from repro.geo.areatree import AreaTree               # noqa: E402
@@ -425,3 +426,225 @@ def test_refine_stage_reductions_match_host(min_counts, dwells):
         want = refine_tracks_host(*track, n, cons, edges=((0, 1),),
                                   min_counts=min_counts, dwells=dwells)
         assert np.array_equal(got[i, :n], want)
+
+
+
+# ------------------------------------------- single-shard and serve kernels
+
+@pytest.mark.parametrize("w", [1, 31, 32, 33, 4097])
+@pytest.mark.parametrize("op", ["and", "or", "andnot"])
+def test_bitset_binary(w, op):
+    rng = np.random.default_rng(w)
+    a, b = (rng.integers(0, 1 << 32, w, dtype=np.uint64).astype(np.uint32)
+            for _ in range(2))
+    got = _u32(bitset.bitset_binary(_words(a), _words(b), op))
+    want_i = np.asarray(jbitset.bitset_binary(jnp.asarray(a), jnp.asarray(b),
+                                              op=op, interpret=True))
+    ref_fn = {"and": jref.bitset_and_ref, "or": jref.bitset_or_ref,
+              "andnot": jref.bitset_andnot_ref}[op]
+    want_r = np.asarray(ref_fn(jnp.asarray(a), jnp.asarray(b)))
+    assert np.array_equal(got, want_i) and np.array_equal(got, want_r)
+    ops.reset_launch_counts()
+    ops.bitmap_binary(_words(a), _words(b), op)
+    assert ops.launch_counts() == {"bitmap_binary": 1}
+
+
+def test_bitset_binary_rejects_bad_inputs():
+    a = _words(np.zeros(4, np.uint32))
+    with pytest.raises(ValueError):
+        bitset.bitset_binary(a, a, "xor")
+    with pytest.raises(ValueError):
+        bitset.bitset_binary(a, a[:3].contiguous())
+
+
+@pytest.mark.parametrize("k,w", [(1, 31), (2, 32), (3, 33), (4, 700),
+                                 (2, 4097)])
+def test_bitmap_intersect(k, w):
+    rng = np.random.default_rng(10 * k + w)
+    stack = rng.integers(0, 1 << 32, (k, w), dtype=np.uint64) \
+        .astype(np.uint32)
+    stack[:, rng.integers(0, w)] |= 0x80000000          # the sign bit
+    bm, cnt = bitset.bitmap_intersect(_words(stack))
+    jbm, jcnt = jbitset.bitmap_intersect(jnp.asarray(stack), interpret=True)
+    rbm = jref.bitmap_intersect_ref(jnp.asarray(stack))
+    assert np.array_equal(_u32(bm), np.asarray(jbm))
+    assert np.array_equal(_u32(bm), np.asarray(rbm))
+    assert int(cnt) == int(jcnt) == int(jref.popcount_ref(rbm))
+    assert cnt.dtype == torch.int32 and cnt.dim() == 0
+    ops.reset_launch_counts()
+    ops.bitmap_intersect(_words(stack))
+    assert ops.launch_counts() == {"bitmap_intersect": 1}
+
+
+@pytest.mark.parametrize("n,density", [(1, 1.0), (31, .5), (4096, .3),
+                                       (4097, .01), (9000, .9), (300, 0.0)])
+def test_mask_prefix_sum_and_compact(n, density):
+    """Across the kernel's 4096-row tiles: positions and ids equal to the
+    interpret kernels and the jnp oracle, byte for byte."""
+    rng = np.random.default_rng(n)
+    mask = rng.random(n) < density
+    pos, pc = compact.mask_prefix_sum(torch.from_numpy(mask))
+    jpos, jpc = jcompact.mask_prefix_sum(jnp.asarray(mask), interpret=True)
+    assert np.array_equal(pos.numpy(), np.asarray(jpos))
+    idx, c = compact.compact(torch.from_numpy(mask))
+    jidx, jc = jcompact.compact(jnp.asarray(mask), interpret=True)
+    ridx, rc = jref.compact_ref(jnp.asarray(mask))
+    assert np.array_equal(idx.numpy(), np.asarray(jidx))
+    assert np.array_equal(idx.numpy(), np.asarray(ridx))
+    assert int(pc) == int(c) == int(jc) == int(jpc) == int(rc) == mask.sum()
+    assert idx.dtype == pos.dtype == torch.int32
+    ops.reset_launch_counts()
+    ops.compact(torch.from_numpy(mask))
+    assert ops.launch_counts() == {"compact": 1}
+
+
+def test_compact_empty_mask():
+    idx, c = compact.compact(torch.zeros(0, dtype=torch.bool))
+    jidx, jc = jcompact.compact(jnp.zeros((0,), bool), interpret=True)
+    assert idx.shape == (0,) and int(c) == 0 == int(jc)
+    pos, pc = compact.mask_prefix_sum(torch.zeros(0, dtype=torch.bool))
+    assert pos.shape == (0,) and int(pc) == 0
+
+
+@pytest.mark.parametrize("kw", MODES)
+def test_refine_tracks_single_shard(kw):
+    """The S=1 wrapper equals the TPU ``refine_tracks`` (interpret)."""
+    rng = np.random.default_rng(5)
+    _, _, pts, rows, cov = _wave(rng, [45], 2)
+    got = refine.refine_tracks(_words(pts[0]), torch.from_numpy(rows[0]),
+                               _words(cov), 45, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = _jax_refine(lambda *a, **k: jrefine.refine_tracks(
+        *a, interpret=True, **k), pts[0], rows[0], cov, 45, **kw)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g = g.numpy()
+        assert np.array_equal(g.view(w.dtype) if g.dtype != bool else g, w)
+    ops.reset_launch_counts()
+    ops.refine_tracks(_words(pts[0]), torch.from_numpy(rows[0]),
+                      _words(cov), 45, **kw)
+    assert ops.launch_counts() == {"refine_tracks": 1}
+
+
+def _multi_wave(rng, shard_docs, n_cons):
+    """Shared ragged tracks and Q queries' constraint lists (``n_cons``
+    constraints each), packed into one padded multi-query table."""
+    tracks = [_tracks(rng, n, 10) for n in shard_docs]
+    lat = np.concatenate([t[0] for t in tracks])
+    lng = np.concatenate([t[1] for t in tracks])
+    cons = [_constraints(rng, lat, lng, c) for c in n_cons]
+    packs = [pack_track_points(*t) for t in tracks]
+    p_max = max(1, max(p.shape[1] for p, _ in packs))
+    pts = np.zeros((len(packs), 4, p_max), np.uint32)
+    rows = np.full((len(packs), p_max), -1, np.int32)
+    for i, (p, r) in enumerate(packs):
+        pts[i, :, :p.shape[1]] = p
+        rows[i, :r.size] = r
+    return tracks, cons, pts, rows, pack_constraints_multi(cons)
+
+
+@pytest.mark.parametrize("kw", MODES)
+def test_refine_tracks_multi(kw):
+    """Q=3 queries of 1–3 constraints over S=2 shards (padded C and R):
+    equal to the interpret multi kernel and the vmapped jnp oracle."""
+    rng = np.random.default_rng(77)
+    _, _, pts, rows, cov = _multi_wave(rng, [40, 33], (1, 3, 2))
+    assert pts.shape[2] <= 512 and cov.shape[:2] == (3, 3)
+    got = refine.refine_tracks_multi(_words(pts), torch.from_numpy(rows),
+                                     _words(cov), 40, **kw)
+    got = [o.numpy() for o in (got if isinstance(got, tuple) else (got,))]
+    want_i = _jax_refine(lambda *a, **k: jrefine.refine_tracks_multi(
+        *a, interpret=True, **k), pts, rows, cov, 40, **kw)
+    want_r = _jax_refine(jref.refine_tracks_multi_ref, pts, rows, cov, 40,
+                         **kw)
+    assert len(got) == len(want_i) == len(want_r)
+    for g, wi, wr in zip(got, want_i, want_r):
+        g = g.view(wi.dtype) if g.dtype != bool else g
+        assert np.array_equal(g, wi) and np.array_equal(g, wr)
+    assert got[0].any() and not got[0].all()
+
+
+def test_refine_tracks_multi_per_query_equals_single():
+    """Each query's plane equals the single-query wave kernel on its own
+    table: the always-hit pad constraints and never-hit pad ranges change
+    no verdict of a doc that passes its real constraints."""
+    rng = np.random.default_rng(78)
+    _, cons, pts, rows, cov = _multi_wave(rng, [50, 17], (2, 1, 3))
+    got = refine.refine_tracks_multi(_words(pts), torch.from_numpy(rows),
+                                     _words(cov), 50).numpy()
+    for q, c in enumerate(cons):
+        one = _port_refine(pts, rows, pack_constraints(c), 50)[0]
+        assert np.array_equal(got[q], one)
+    empty = refine.refine_tracks_multi(_words(pts[:0]),
+                                       torch.from_numpy(rows[:0]),
+                                       _words(cov), 50, with_analytics=True)
+    assert empty[0].shape == (3, 0, 50) and empty[5].shape == (3, 0, 3, 50)
+
+
+def test_run_wave_fused_multi_matches_jax_interpret():
+    """Q=3 coalesced queries (one with an ordering edge) through the
+    multi-query wave: the query axis folded into the probe and compact
+    kernels, against the JAX pipeline on its interpret kernels."""
+    rng = np.random.default_rng(91)
+    shard_docs = [60, 0, 33]
+    _, _, pts, rows, cov = _multi_wave(rng, shard_docs, (2, 1, 2))
+    n_max = max(shard_docs)
+    w = (n_max + 31) // 32
+    stacks = np.zeros((3, len(shard_docs), 2, w), np.uint32)
+    for q in range(3):
+        for i, n in enumerate(shard_docs):
+            full = bitmap_from_ids(np.arange(n), n)
+            probe = bitmap_from_ids(np.nonzero(rng.random(n) < .7)[0], n)
+            stacks[q, i, 0, :full.size] = full
+            stacks[q, i, 1, :probe.size] = probe
+    ns = np.asarray(shard_docs, np.int32)
+    edges = ((), (), ((0, 1),))
+    ops.reset_launch_counts()
+    cand, idx, cnt = ops.run_wave_fused_multi(
+        _words(stacks), torch.from_numpy(ns), _words(pts),
+        torch.from_numpy(rows), _words(cov), num_docs=n_max,
+        edges_multi=edges)
+    assert ops.launch_counts() == {"run_wave_fused_multi": 1}
+    jc, jidx, jcnt = jfused.run_wave_fused_multi(
+        jnp.asarray(stacks), jnp.asarray(ns), jnp.asarray(pts),
+        jnp.asarray(rows), jnp.asarray(cov), num_docs=n_max,
+        edges_multi=edges, impl="interpret")
+    assert np.array_equal(cand.numpy(), np.asarray(jc))
+    assert np.array_equal(idx.numpy(), np.asarray(jidx))
+    assert np.array_equal(cnt.numpy(), np.asarray(jcnt))
+    assert cnt.numpy().sum() > 0
+
+
+@pytest.mark.parametrize("min_counts,dwells", [((2, 1), (None, None)),
+                                               ((1, 1), (5000.0, None))])
+def test_refine_multi_stage_reductions_match_host(min_counts, dwells):
+    """A query with count / dwell reductions beside one without, in one
+    multi-query launch: each verdict equals the numpy host oracle's."""
+    rng = np.random.default_rng(33)
+    shard_docs = [40, 25]
+    tracks, cons, pts, rows, cov = _multi_wave(rng, shard_docs, (2, 2))
+    got = fused._refine_multi_stage(
+        _words(pts), torch.from_numpy(rows), _words(cov), max(shard_docs),
+        ((), ((0, 1),)), (min_counts, ()), (dwells, ())).numpy()
+    for i, (track, n) in enumerate(zip(tracks, shard_docs)):
+        want0 = refine_tracks_host(*track, n, cons[0],
+                                   min_counts=min_counts, dwells=dwells)
+        want1 = refine_tracks_host(*track, n, cons[1], edges=((0, 1),))
+        assert np.array_equal(got[0, i, :n], want0)
+        assert np.array_equal(got[1, i, :n], want1)
+
+
+def test_postings_bitmap_matches_host():
+    """The spacetime lookup's tail: postings OR + span prune, equal to
+    the JAX package's host oracle word for word (bit 31 included)."""
+    rng = np.random.default_rng(4)
+    for n in (1, 31, 32, 33, 100):
+        ids = rng.choice(n, size=max(1, n // 2), replace=False)
+        t_min = rng.uniform(0, 100, n)
+        t_max = t_min + rng.uniform(0, 50, n)
+        got = fused.postings_bitmap(torch.from_numpy(ids),
+                                    torch.from_numpy(t_min),
+                                    torch.from_numpy(t_max), 40.0, 90.0, n)
+        want = JNumpyBackend().postings_bitmap(ids, t_min, t_max, 40.0,
+                                               90.0, n)
+        assert np.array_equal(_u32(got), want)

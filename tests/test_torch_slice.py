@@ -1,4 +1,5 @@
-"""The port's first slice end to end: the fused Tesseract query wave.
+"""The port end to end: the fused Tesseract query wave, the filter path
+and the best-effort retry path.
 
 The same synthetic world runs the slice's four queries — Q7-agg (the
 Tesseract Q7 legs with a day group-by: count, avg, std_dev), Q9-agg (the
@@ -9,6 +10,13 @@ be equal, float64 aggregates bit for bit (the port stages float64 values
 on the CPU and its plain segment sums accumulate in row order, as numpy's
 bincount does).  The fused launch contract is ⌈shards/wave⌉
 ``run_wave_fused`` dispatches per query.
+
+The paper's Q2 in its ``geo_index`` and ``full_scan`` modes runs its
+time predicates through ``.filter()`` (the single-mask ``compact`` per
+shard), and Q7-agg / Q1 under a ``FaultPlan`` that fails two shards once
+take the retry path (``run_shard_task``: the single-shard seam, the
+spacetime ``postings_bitmap`` and the S=1 ``refine_tracks``); both must
+give the reference's records.
 """
 import json
 import math
@@ -78,6 +86,27 @@ def _queries(c, T, s):
 QUERIES = ["Q7-agg", "Q9-agg", "Q11", "Q1"]
 
 
+def _filter_queries(c, s, exprs):
+    """Q2 (SF, January) in the paper's two modes that filter after the
+    read: ``geo_index`` (area index only) and ``full_scan`` (no index;
+    the predicates are obscured so the planner cannot use one)."""
+    P, region = c.P, s.city_region("SF")
+    agg = (c.group(P.road_id).avg(mean_speed=P.speed)
+           .std_dev(std_speed=P.speed).count("n"))
+    time_pred = (c.BETWEEN(P.hour, 8, 9) & c.BETWEEN(P.dow, 0, 4)
+                 & c.BETWEEN(P.month, 1, 1))
+    return {
+        "Q2-geo_index": lambda: c.fdb("SpeedObservations")
+        .find(c.IN(P.loc, region)).filter(time_pred).aggregate(agg),
+        "Q2-full_scan": lambda: c.fdb("SpeedObservations")
+        .filter(((P.hour + 0) >= 8) & ((P.hour + 0) <= 9)
+                & ((P.dow + 0) <= 4) & ((P.month + 0) <= 1))
+        .filter(exprs.ExprProxy(exprs.InRegion(exprs.FieldRef("loc"),
+                                               region)))
+        .aggregate(agg),
+    }
+
+
 def _catalog(syn_mod, fdb_mod, exec_mod, scale):
     w = syn_mod.generate_world(scale=scale, seed=0)
     cat = exec_mod.Catalog(server_slots=64)
@@ -94,16 +123,21 @@ def worlds(request):
     scale = request.param
     port = _catalog(syn, pfdb, pexec, scale)
     ref = _catalog(jsyn, jfdb, jexec, scale)
+    import repro.core.exprs as jexprs
+    flows = {**_queries(jcore, jtess.Tesseract, jsyn),
+             **_filter_queries(jcore, jsyn, jexprs)}
     want = {name: jcore.Session(catalog=ref, backend="numpy").run(q())
-            .to_records()
-            for name, q in _queries(jcore, jtess.Tesseract, jsyn).items()}
+            .to_records() for name, q in flows.items()}
     return scale, port, ref, want
 
 
-def _run(cat, name, config):
+def _run(cat, name, config, **kw):
+    import repro_torch.core.exprs as exprs
+    flows = {**_queries(core, tess.Tesseract, syn),
+             **_filter_queries(core, syn, exprs)}
     sess = core.Session(catalog=cat, config=config)
     ops.reset_launch_counts()
-    res = sess.run(_queries(core, tess.Tesseract, syn)[name]())
+    res = sess.run(flows[name](), **kw)
     return res, ops.launch_counts()
 
 
@@ -142,6 +176,65 @@ def test_slice_declined_waves(worlds, name):
     assert "run_wave_fused" not in lc
     assert lc["bitmap_intersect_batched"] == waves
     assert lc["compact_batched"] == waves
+
+
+@pytest.mark.parametrize("name", ["Q2-geo_index", "Q2-full_scan"])
+def test_filter_query_matches_reference(worlds, name):
+    """``.filter()`` runs per shard through the single-mask ``compact``
+    (one launch per shard with rows) after the fused wave; records equal
+    to the reference's."""
+    _, port, _, want = worlds
+    res, lc = _run(port, name,
+                   pexec.ExecConfig(backend=pexec.TorchBackend(device="cpu")))
+    assert res.to_records() == want[name]
+    shards = len(res.plan.shard_ids)
+    assert lc["run_wave_fused"] == math.ceil(shards / 8)
+    assert 0 < lc["compact"] <= shards * (1 + name.endswith("full_scan"))
+    assert want[name]
+
+
+@pytest.mark.parametrize("name,stage", [("Q7-agg", "server"),
+                                        ("Q1", "server")])
+def test_retry_path_matches_reference(worlds, name, stage):
+    """Two shards fail once; the best-effort retry re-runs each through
+    ``run_shard_task`` on the single-shard seam — probe
+    (``bitmap_intersect``, the spacetime ``postings_bitmap``), the S=1
+    ``refine_tracks``, ``compact`` and ``segment_agg`` — and the records
+    equal the reference's fault-free ones."""
+    _, port, _, want = worlds
+    plan = pexec.FaultPlan(fail_once={(stage, 1), (stage, 3)})
+    res, lc = _run(port, name,
+                   pexec.ExecConfig(backend=pexec.TorchBackend(device="cpu")),
+                   fault_plan=plan)
+    assert res.profile.retries == 2 and not res.profile.dropped_shards
+    assert res.to_records() == want[name]
+    assert lc["bitmap_intersect"] == 2 and lc["compact"] == 2
+    if name == "Q7-agg":
+        assert lc["refine_tracks"] == 2 and lc["postings_bitmap"] == 4
+    else:                      # a retried shard with rows aggregates
+        assert lc["segment_agg"] >= 2
+
+
+def test_second_mixer_aggregate(worlds):
+    """An aggregate over an aggregate runs in the mixer through the
+    single-shard ``segment_aggregate``; bit-equal to the numpy oracle."""
+    _, port, _, _ = worlds
+
+    def flow():
+        return (core.fdb("SpeedObservations")
+                .find(core.BETWEEN(core.P.hour, 8, 9))
+                .aggregate(core.group(core.P.road_id).count("n")
+                           .avg(m=core.P.speed))
+                .aggregate(core.group(core.P.n).count("k")
+                           .avg(mm=core.P.m)))
+
+    ops.reset_launch_counts()
+    got = core.Session(catalog=port, backend=pexec.TorchBackend(
+        device="cpu")).run(flow()).to_records()
+    assert ops.launch_counts()["segment_agg"] >= 1
+    want = core.Session(catalog=port, backend=pexec.NumpyBackend()).run(
+        flow()).to_records()
+    assert got == want and got
 
 
 def test_fdb_saved_by_reference_loads_in_port(tmp_path):
