@@ -32,6 +32,18 @@ around it: it imports nothing of the JAX package.  Phases:
 3d. retry: Q7-agg and Q1 with two shards failing once (``FaultPlan``),
    retried through the single-shard seam (``bitmap_intersect``,
    ``compact``, the S=1 ``refine_tracks``), against the oracle;
+3e. lm: the LM serving path (``launch.serve.Server``) at full width —
+   SmolLM-360M at full depth (32 layers) and Jamba-v0.1 cut to one block
+   cycle (8 of 32 layers: 7 Mamba + 1 attention, MoE on odd layers; the
+   full 52B does not fit one card) — with seeded random bf16 weights,
+   answering 8 requests (prompts of 64-512 random tokens, 16 new tokens
+   each): flash_attention launches = attention layers × prefills and
+   ssm_scan launches = Mamba layers × 256-token chunks a prefill; then
+   prefill and decode times, peak memory and the device's idle share of
+   one warm ``generate_batch``; then, in float32 with dropless MoE, the
+   decode logits at position S-1 after a prefill of S-1 tokens against
+   the prefill's logits over S tokens (the kernel path against the plain
+   decode path);
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the largest shape the main path gave it (every refine output mode, both
    segment_agg branches) and at one larger shape, timed with CUDA events
@@ -43,7 +55,7 @@ around it: it imports nothing of the JAX package.  Phases:
    warm ``run_pending()``.
 
 Every main-path run sets the launch counters to 0 just before it and
-reads them just after; a kernel's ``launches`` is the sum over phases 3-3d.
+reads them just after; a kernel's ``launches`` is the sum over phases 3-3e.
 ``bitset_binary`` (row 8) is on no path of the engines (only
 ``ops.bitmap_binary`` reaches it), so it reports 0 launches and is held
 and timed in phase 4 only.
@@ -71,6 +83,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 SCALAR_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate (data sheet)
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor rate (data sheet)
 WAVE = 8
 WARM_RUNS = 5                  # warm wall time: the median of these
 SCALE = 20.0
@@ -103,6 +116,10 @@ KERNELS = {
     # row 4's kernel at S=1 (the retry path's single-shard refine)
     "refine_tracks": ("src/repro_torch/kernels/csrc/refine.cu",
                       "src/repro/kernels/refine.py:431"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:137"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:63"),
 }
 #: kernels no engine path launches (held and timed in phase 4 only)
 OFF_PATH = {"bitset_binary"}
@@ -111,6 +128,25 @@ REFINES = ("refine_tracks_batched", "refine_tracks_multi", "refine_tracks")
 SERVE_BATCH = 16
 #: shards that fail once in the retry phase
 FAILING_SHARDS = (1, 3)
+#: the lm phase: requests of random tokens with prompt lengths drawn from
+#: [64, 512] by numpy.random.default_rng(0), 16 new tokens each, through
+#: Server(cfg, reduced=False, max_batch=4)
+LM_REQUESTS = 8
+LM_MAX_BATCH = 4
+LM_MAX_NEW = 16
+LM_PROMPT_LENS = (64, 512)
+#: Mamba chunk length (mamba_apply's default): ssm_scan launches a chunk
+LM_SSM_CHUNK = 256
+#: prefill↔decode consistency: batch and prompt length (two ssm chunks)
+LM_CHECK_SHAPE = (2, 300)
+#: and its bound: relative to max |logit|, as tests/test_models.py holds
+#: the JAX package (the decode caches are bf16 in both packages)
+LM_CHECK_REL = 0.02
+#: kernel vs plain version: float32 rounding in another summation order
+#: (flash: 3e-3 in float32, one bf16 rounding of the output in bf16;
+#: ssm_scan: 3e-4, as the JAX package holds its kernels)
+FLASH_TOL = {"float32": 3e-3, "bfloat16": 3e-2}
+SSM_TOL = 3e-4
 
 
 def fail(msg: str) -> None:
@@ -509,6 +545,10 @@ def main() -> int:
     recording[0] = None
     for mod, name in wrappers:
         setattr(mod, name, originals[name])
+
+    # --------------------------------------------------------------- 3e. lm
+    lm_inputs = lm_phase(torch, np, totals)
+
     for k, n in totals.items():
         if n == 0 and k not in OFF_PATH:
             fail(f"kernel {k} was never launched on the main path")
@@ -550,8 +590,8 @@ def main() -> int:
             return "not measured"
         return sum(e.self_device_time_total for e in dev) / 1e3 / iters
 
-    def bound(nbytes, nops):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, nops / SCALAR_OPS_PER_S
+    def bound(nbytes, nops, ops_per_s=SCALAR_OPS_PER_S):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
         return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else
                                      "operations")
 
@@ -570,9 +610,10 @@ def main() -> int:
     reps = max(1, round(LARGE_POINTS / p_wave))
 
     def measure(name, run_kernel, run_plain, run_library, compare,
-                nbytes, nops, iters, plain_iters):
+                nbytes, nops, iters, plain_iters,
+                ops_per_s=SCALAR_OPS_PER_S):
         err = compare(run_kernel(), run_plain())
-        b_ms, b_by = bound(nbytes, nops)
+        b_ms, b_by = bound(nbytes, nops, ops_per_s)
         return {"max_abs_err": err, "ms": cuda_ms(run_kernel, iters),
                 "device_ms": device_ms(run_kernel),
                 "plain_ms": cuda_ms(run_plain, plain_iters),
@@ -805,6 +846,29 @@ def main() -> int:
                     big, compact.mask_prefix_sum, ref.mask_prefix_sum_ref,
                     None), 50, 5)}
             shape, lshape = list(mask.shape), list(big.shape)
+        elif name == "flash_attention":
+            per_config = {}
+            for cname, (args, kw) in lm_inputs["flash_attention"].items():
+                per_config[cname] = {
+                    "shape": list(args[0].shape),
+                    **measure(name, *flash_case(torch, *args, **kw), 20, 3,
+                              BF16_TENSOR_OPS_PER_S)}
+            top = max(lm_inputs["flash_attention"].items(),
+                      key=lambda kv: kv[1][0][0].numel())
+            args, kw = top[1]
+            wave = per_config[top[0]]
+            wave = {k: v for k, v in wave.items() if k != "shape"}
+            largs = tuple(tile(t, 4, 2) for t in args)
+            large = measure(name, *flash_case(torch, *largs, **kw), 10, 1,
+                            BF16_TENSOR_OPS_PER_S)
+            shape, lshape = list(args[0].shape), list(largs[0].shape)
+            entry.update(configs=per_config, dtype=str(args[0].dtype))
+        elif name == "ssm_scan":
+            a, bx, h0 = lm_inputs["ssm_scan"]
+            wave = measure(name, *ssm_case(torch, a, bx, h0), 20, 2)
+            la, lbx = tile(a, 4, 1), tile(bx, 4, 1)
+            large = measure(name, *ssm_case(torch, la, lbx, h0), 10, 1)
+            shape, lshape = list(a.shape), list(la.shape)
         elif name == "bitset_binary":
             # on no engine path: two shard bitmaps of the retry phase
             stack = captured["bitmap_intersect"][1][0]
@@ -879,6 +943,246 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def flash_case(torch, q, k, v, **kw):
+    """The flash_attention case for ``measure``: kernel, plain version,
+    SDPA (a prefill's causal self-attention only), the check, bytes and
+    operations.  Bound: 4·D flops (two products) per unmasked (query,
+    key) pair and head at the bf16 tensor rate, or q, k, v and o once."""
+    from torch.nn.functional import scaled_dot_product_attention
+    from repro_torch.kernels import flash_attention as fa_kernel
+    from repro_torch.kernels import ref
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    keep = kpos <= qpos if kw.get("causal", True) else kpos >= 0
+    if kw.get("window"):
+        keep &= kpos > qpos - kw["window"]
+    pairs = int(keep.sum())
+
+    def compare(g, w):
+        d_ = (g.float() - w.float()).abs()
+        if bool((d_ > tol + tol * w.float().abs()).any()):
+            fail(f"flash_attention {list(q.shape)}: differs from the "
+                 f"plain version by {float(d_.max())}")
+        return float(d_.max())
+
+    library = None
+    if sq == skv and not kw.get("window") and not kw.get("softcap"):
+        def library():
+            return scaled_dot_product_attention(
+                q, k, v, is_causal=kw.get("causal", True),
+                enable_gqa=True)
+    return (lambda: fa_kernel.flash_attention(q, k, v, **kw),
+            lambda: ref.flash_attention_ref(q, k, v, **kw), library,
+            compare, q.element_size() * (2 * q.numel() + 2 * k.numel()),
+            4 * b * hq * d * pairs)
+
+
+def ssm_case(torch, a, bx, h0):
+    """The ssm_scan case for ``measure`` (no library call computes the
+    recurrence).  Bytes: a, bx (and h0) read once, h (and h_final)
+    written once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as ssm_kernel
+
+    def compare(g, w):
+        err = 0.0
+        for x, y in zip(g, w):
+            d_ = (x - y).abs()
+            if bool((d_ > SSM_TOL + SSM_TOL * y.abs()).any()):
+                fail(f"ssm_scan {list(a.shape)}: differs from the plain "
+                     f"version by {float(d_.max())}")
+            err = max(err, float(d_.max()))
+        return err
+
+    nbytes = 4 * (3 * a.numel() + 2 * a.shape[0] * a.shape[2])
+    return (lambda: ssm_kernel.ssm_scan(a, bx, h0),
+            lambda: ref.ssm_scan_ref(a, bx, h0), None, compare, nbytes,
+            2 * a.numel())
+
+
+def lm_phase(torch, np, totals):
+    """Phase 3e: the LM serving path on the card (module docstring).
+
+    Adds each kernel's launches in the counted ``serve`` runs to
+    ``totals`` and returns the inputs the kernels got there (the largest
+    flash_attention call per configuration, the largest ssm_scan call),
+    recorded in one more prefill after the timed runs."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa_kernel
+    from repro_torch.kernels import ssm_scan as ssm_kernel
+    from repro_torch.launch.serve import Request, Server
+    from repro_torch.ml.transformer import LM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    jamba = get_config("jamba_v0_1_52b")
+    configs = {"smollm_360m": get_config("smollm_360m"),
+               # one block cycle: 52B params (~104 GB in bf16) do not fit
+               "jamba_v0_1_52b[8 of 32 layers]": replace(jamba,
+                                                        num_layers=8)}
+    inputs = {"flash_attention": {}, "ssm_scan": None}
+
+    def sync_ms(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for cname, cfg in configs.items():
+        kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+        n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+        row = {"config": cname, "layers": cfg.num_layers,
+               "attention_layers": n_attn, "mamba_layers": n_mamba,
+               "d_model": cfg.d_model, "act_dtype": cfg.act_dtype}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        srv = Server(cfg, reduced=False, max_batch=LM_MAX_BATCH)
+        row["init_ms"] = sync_ms(t0)
+        row["param_bytes"] = sum(
+            t.numel() * t.element_size() for t in _leaves(srv.params))
+        row["param_count"] = sum(t.numel() for t in _leaves(srv.params))
+        rng = np.random.default_rng(0)
+        lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1,
+                            LM_REQUESTS)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, n
+                                        ).astype(np.int32),
+                        max_new=LM_MAX_NEW) for i, n in enumerate(lens)]
+        # serve() prefills max_batch newly admitted prompts at a time
+        batches = [lens[i:i + LM_MAX_BATCH]
+                   for i in range(0, LM_REQUESTS, LM_MAX_BATCH)]
+        need = {"flash_attention": n_attn * len(batches),
+                "ssm_scan": n_mamba * sum(
+                    math.ceil(int(max(b)) / LM_SSM_CHUNK) for b in batches)}
+        ops.reset_launch_counts()
+        _build.reset_kernel_launches()
+        t0 = time.perf_counter()
+        srv.serve(reqs)
+        row["serve_ms"] = sync_ms(t0)
+        kc = _build.kernel_launches()
+        for k, n in need.items():
+            if kc.get(k, 0) != n:
+                fail(f"lm {cname}: {k} launched {kc.get(k, 0)} times in "
+                     f"serve, expected {n}")
+            totals[k] += kc.get(k, 0)
+        for r in reqs:
+            if not (r.done and len(r.out) == LM_MAX_NEW
+                    and all(0 <= t < cfg.vocab_size for t in r.out)):
+                fail(f"lm {cname}: request {r.rid} gave {r.out}")
+        row.update(requests=LM_REQUESTS, prompt_lens=[int(n) for n in lens],
+                   tokens_out=sum(len(r.out) for r in reqs),
+                   serve_kernels=kc, serve_dispatches=ops.launch_counts(),
+                   serve_peak_bytes=torch.cuda.max_memory_allocated(),
+                   stats=dict(srv.stats))
+        row["serve_tokens_per_s"] = row["tokens_out"] / row["serve_ms"] * 1e3
+
+        # warm: one batch of the first max_batch prompts, timed in parts
+        prompts = [r.prompt for r in reqs[:LM_MAX_BATCH]]
+        s = max(p.shape[0] for p in prompts)
+        toks = np.zeros((len(prompts), s), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, s - p.shape[0]:] = p
+        toks = torch.from_numpy(toks).cuda()
+        with torch.inference_mode():
+            srv.lm.prefill(srv.params, toks)             # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = srv.lm.prefill(srv.params, toks)
+            row["prefill_ms"] = sync_ms(t0)
+            cur = torch.argmax(logits, dim=-1).to(torch.int32)
+            t0 = time.perf_counter()
+            for t in range(LM_MAX_NEW - 1):
+                logits, caches = srv.lm.decode_step(srv.params, cur, caches,
+                                                    s + t)
+                cur = torch.argmax(logits, dim=-1).to(torch.int32)
+            row["decode_ms_per_step"] = sync_ms(t0) / (LM_MAX_NEW - 1)
+            del caches
+        row["warm_batch"] = [len(prompts), s]
+        row["warm_tokens_per_s"] = len(prompts) * LM_MAX_NEW / (
+            row["prefill_ms"] + (LM_MAX_NEW - 1) * row["decode_ms_per_step"]
+        ) * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        srv.generate_batch(prompts, max_new=LM_MAX_NEW)
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            srv.generate_batch(prompts, max_new=LM_MAX_NEW)
+            wall = sync_ms(t0)
+        row.update(profiled_wall_ms=wall, **_device_busy(torch, prof, wall))
+
+        # the kernels' inputs on this path: one more prefill, recorded
+        def recorder(key, fn):
+            def call(*args, **kw):
+                if key == "flash_attention":
+                    best = inputs[key].get(cname)
+                    if best is None or best[0][0].numel() < args[0].numel():
+                        inputs[key][cname] = (tuple(a.clone() for a in args),
+                                              dict(kw))
+                else:
+                    best = inputs[key]
+                    if best is None or best[0].numel() <= args[0].numel():
+                        inputs[key] = tuple(
+                            a.clone() if a is not None else None
+                            for a in (args + (None,) * 3)[:3])
+                return fn(*args, **kw)
+            return call
+
+        orig = (fa_kernel.flash_attention, ssm_kernel.ssm_scan)
+        fa_kernel.flash_attention = recorder("flash_attention", orig[0])
+        ssm_kernel.ssm_scan = recorder("ssm_scan", orig[1])
+        try:
+            with torch.inference_mode():
+                big = max(batches, key=lambda b: int(max(b)))
+                srv.lm.prefill(srv.params, torch.from_numpy(
+                    rng.integers(0, cfg.vocab_size, (len(big), int(max(big))))
+                    .astype(np.int32)).cuda())
+        finally:
+            fa_kernel.flash_attention, ssm_kernel.ssm_scan = orig
+        del srv, logits
+        torch.cuda.empty_cache()
+
+        # prefill (kernels) vs decode (plain) in float32, dropless MoE
+        cfg32 = replace(cfg, act_dtype="float32")
+        if cfg.moe_experts:
+            cfg32 = replace(cfg32, moe_capacity_factor=float(
+                cfg.moe_experts))
+        torch.cuda.reset_peak_memory_stats()
+        lm = LM(cfg32)
+        params = lm.init(seed=0, device="cuda")
+        b, n = LM_CHECK_SHAPE
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, n))
+                                .astype(np.int32)).cuda()
+        with torch.inference_mode():
+            want, _ = lm.prefill(params, toks)
+            _, caches = lm.prefill(params, toks[:, :-1])
+            got, _ = lm.decode_step(params, toks[:, -1:], caches, n - 1)
+        err = float((got - want).abs().max() / want.abs().max())
+        same = bool((got.argmax(-1) == want.argmax(-1)).all())
+        row["consistency"] = {"shape": [b, n], "rel_err": err,
+                              "bound": LM_CHECK_REL, "argmax_equal": same,
+                              "peak_bytes": torch.cuda.max_memory_allocated()}
+        if not (math.isfinite(err) and err < LM_CHECK_REL and same):
+            fail(f"lm {cname}: decode after prefill differs from the "
+                 f"prefill's logits: {row['consistency']}")
+        del lm, params, caches, got, want
+        torch.cuda.empty_cache()
+        print("lm " + json.dumps(row))
+    if inputs["ssm_scan"] is None or len(inputs["flash_attention"]) != 2:
+        fail("lm: the kernels' inputs were not recorded")
+    return inputs
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _host_rows(stats):

@@ -46,7 +46,8 @@ _CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 
 #: kernel library name → its C entry points' ctypes signatures
-#: (``p`` pointer or stream, ``i`` int); every entry returns an int error
+#: (``p`` pointer or stream, ``i`` int, ``l`` 64-bit int, ``f`` float);
+#: every entry returns an int error
 SOURCES: Dict[str, Dict[str, str]] = {
     "bitset": {"repro_bitmap_intersect_batched": "pppiiip",
                "repro_bitmap_intersect": "pppiip",
@@ -56,12 +57,15 @@ SOURCES: Dict[str, Dict[str, str]] = {
     "segment_agg": {"repro_segment_agg": "ppiipppp"},
     "refine": {"repro_refine_tracks_batched": "pppiiiiiippppp",
                "repro_refine_tracks_multi": "pppiiiiiiippppp"},
+    "flash_attention": {"repro_flash_attention": "ppppiiiiiiiiiffp"},
+    "ssm_scan": {"repro_ssm_scan": "pppppiilp"},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+_CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+          "f": ctypes.c_float}
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output (the ptxas register / shared-memory report) per library
@@ -156,7 +160,8 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
 def launch(counter: str, lib_name: str, entry: str, device: torch.device,
            *args) -> None:
     """Call C entry ``entry`` of library ``lib_name`` on ``device``'s
-    current stream; tensors pass as their data pointers, ints as ints.
+    current stream; tensors pass as their data pointers (``None`` as a
+    null pointer), numbers as themselves.
     Raises on a CUDA error, then counts one launch under ``counter``."""
     lib = library(lib_name)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a

@@ -1,0 +1,79 @@
+"""Forward flash attention (GQA, causal with a decode offset, sliding
+window, tanh soft-capping).
+
+The wrapper of ``csrc/flash_attention.cu`` (``repro_flash_attention``),
+the port of the TPU kernel ``repro/kernels/flash_attention.py``
+``flash_attention``.  CUDA tensors launch the kernel (float32 or bfloat16,
+head dims 16, 32, 64, 128 or 256); CPU tensors run the plain version
+(``ref.flash_attention_ref``).  Both compute in float32 and return q's
+dtype.
+
+Tolerance: the kernel sums in another order than the plain version and
+takes its exponentials per 64-key tile (online softmax), so outputs agree
+to float32 rounding (3e-3 absolute on unit-normal inputs, as the JAX
+package holds its Pallas kernel), and to one bfloat16 rounding of the
+output (3e-2) in bfloat16.  A query row with every key masked (only
+possible when Sq > Skv) comes out 0 from the kernel, as from the TPU
+kernel, and as the mean of V from the plain version, as from the JAX
+reference; the LM never makes one.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from . import ref as _ref
+
+__all__ = ["flash_attention", "HEAD_DIMS"]
+
+#: head dims the CUDA kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None, softcap=None,
+                    scale=None) -> torch.Tensor:
+    """q [B, Hq, Sq, D], k/v [B, Hkv, Skv, D] (Hq % Hkv == 0) →
+    [B, Hq, Sq, D] in q's dtype; query i sits at key position
+    ``Skv - Sq + i``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 4 \
+                or not t.is_floating_point():
+            raise ValueError(f"{name}: expected a rank-4 float tensor")
+    b, hq, sq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do "
+                         f"not fit q {tuple(q.shape)}")
+    hkv, skv = k.shape[1], k.shape[2]
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got {hq} and {hkv}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v lie on different devices")
+    if q.device.type == "cpu":
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window, softcap=softcap,
+                                        scale=scale)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.require(t, name, q.dtype, 4)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims {HEAD_DIMS}, "
+                         f"got {d}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    scale_v = scale if scale is not None else 1.0 / math.sqrt(d)
+    _build.launch("flash_attention", "flash_attention",
+                  "repro_flash_attention", q.device, q, k, v, out, b, hq,
+                  hkv, sq, skv, d, int(causal), int(window or 0),
+                  int(q.dtype == torch.bfloat16), float(scale_v),
+                  float(softcap or 0.0))
+    return out

@@ -21,14 +21,17 @@ from typing import Dict
 
 from . import bitset as _bitset
 from . import compact as _compact
+from . import flash_attention as _fa
 from . import fused as _fused
 from . import refine as _refine
 from . import segment_agg as _seg
+from . import ssm_scan as _ssm
 
 __all__ = ["bitmap_binary", "bitmap_intersect", "bitmap_intersect_batched",
            "compact", "compact_batched", "segment_agg", "refine_tracks",
            "refine_tracks_batched", "refine_tracks_multi", "run_wave_fused",
-           "run_wave_fused_multi", "postings_bitmap", "launch_counts", "reset_launch_counts",
+           "run_wave_fused_multi", "postings_bitmap", "flash_attention",
+           "ssm_scan", "launch_counts", "reset_launch_counts",
            "record_launch"]
 
 
@@ -171,3 +174,19 @@ def postings_bitmap(ids, t_min, t_max, t0: float, t1: float, n_docs: int):
     plain jnp) — one logical dispatch."""
     record_launch("postings_bitmap")
     return _fused.postings_bitmap(ids, t_min, t_max, t0, t1, n_docs)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    softcap=None, scale=None):
+    """Forward GQA attention q [B, Hq, Sq, D] × k/v [B, Hkv, Skv, D] →
+    [B, Hq, Sq, D] (causal at the decode offset, window, softcap)."""
+    record_launch("flash_attention")
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale)
+
+
+def ssm_scan(a, bx, h0=None):
+    """h_t = a_t * h_{t-1} + bx_t over [B, L, D] from h0 [B, D] (zeros) →
+    (h [B, L, D], h_final [B, D])."""
+    record_launch("ssm_scan")
+    return _ssm.ssm_scan(a, bx, h0)

@@ -16,6 +16,8 @@ be wrong).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["key64", "split64", "popcount_words", "bitset_binary_ref",
@@ -23,7 +25,7 @@ __all__ = ["key64", "split64", "popcount_words", "bitset_binary_ref",
            "mask_prefix_sum_ref", "compact_ref", "compact_batched_ref",
            "segment_agg_ref", "refine_tracks_batched_ref",
            "refine_tracks_multi_ref", "refine_no_hits", "FH_NONE",
-           "LH_NONE"]
+           "LH_NONE", "flash_attention_ref", "ssm_scan_ref"]
 
 _LO32 = 0xFFFFFFFF
 _TOP = -(1 << 63)                       # int64 with only bit 63 set
@@ -259,3 +261,53 @@ def refine_tracks_multi_ref(pts: torch.Tensor, rows: torch.Tensor,
     if not (with_first_hits or with_analytics):
         return torch.stack(outs)
     return tuple(torch.stack(planes) for planes in zip(*outs))
+
+
+# --------------------------------------------------------- flash attention
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
+                        softcap=None, scale=None):
+    """Reference GQA attention (``repro/kernels/ref.py:298``).
+
+    q [B, Hq, Sq, D]; k, v [B, Hkv, Skv, D]; Hq % Hkv == 0.  Query i sits
+    at absolute position ``skv - sq + i`` (the decode offset); ``window``
+    keeps keys in [i - window + 1, i]; ``softcap`` is tanh soft-capping.
+    Computed in float32, returned in q's dtype.  A row with every key
+    masked gets the mean of V (softmax over equal -1e30 logits), as the
+    JAX reference does.
+    """
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+# ------------------------------------------------------------- SSM scan
+
+def ssm_scan_ref(a, bx, h0=None):
+    """Diagonal linear recurrence h_t = a_t * h_{t-1} + bx_t
+    (``repro/kernels/ref.py:360``): a, bx [B, L, D], optional h0 [B, D]
+    (zeros) → (hs [B, L, D], final state [B, D]), in a's dtype."""
+    bsz, length, d = a.shape
+    h = torch.zeros((bsz, d), dtype=a.dtype, device=a.device) \
+        if h0 is None else h0.to(a.dtype)
+    hs = torch.empty_like(a)
+    for t in range(length):
+        h = a[:, t] * h + bx[:, t]
+        hs[:, t] = h
+    return hs, h

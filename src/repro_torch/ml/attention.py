@@ -1,0 +1,177 @@
+"""Attention blocks: GQA with RoPE/M-RoPE, SWA, local:global, softcap.
+
+The port of ``repro/ml/attention.py``.  Two execution paths share one
+semantic definition:
+
+  * :func:`_attention` — full-sequence attention (training forward and
+    prefill) through ``kernels.ops.flash_attention``: the hand-written
+    CUDA kernel for CUDA tensors, its plain version for CPU tensors;
+  * :func:`decode_attention` — single-token attention against a KV cache
+    (optionally a rolling window cache), plain PyTorch as the reference's
+    is plain jnp.
+
+The reference's ``chunked_attention`` (a jnp flash fallback that keeps
+the 512-device dry-run's lowered memory at O(S·block)) has no use here,
+and the sharding constraints are no-ops without a mesh, so both go.
+
+KV caches: dict(k, v [B, Hkv, Smax, hd], len int).  Rolling caches
+(SWA / local layers) store only ``window`` positions and are written
+modulo-window; absolute positions are reconstructed for masking.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..kernels import ops as kops
+from .layers import dense_init, mrope, rope
+
+__all__ = ["attn_init", "attn_apply", "decode_attention", "cache_update",
+           "init_cache", "AttnSpec"]
+
+
+def _attention(q, k, v, *, causal, window, softcap, scale):
+    return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal,
+                                window=window, softcap=softcap, scale=scale)
+
+
+# --------------------------------------------------------------------------
+# Decode against KV cache
+# --------------------------------------------------------------------------
+
+def init_cache(batch: int, num_kv_heads: int, max_len: int, head_dim: int,
+               dtype=torch.bfloat16, device=None):
+    return {"k": torch.zeros((batch, num_kv_heads, max_len, head_dim),
+                             dtype=dtype, device=device),
+            "v": torch.zeros((batch, num_kv_heads, max_len, head_dim),
+                             dtype=dtype, device=device),
+            "len": 0}
+
+
+def decode_attention(q, cache, *, window: Optional[int] = None,
+                     softcap: Optional[float] = None,
+                     rolling: bool = False):
+    """q [B,Hq,1,D] vs cache (already containing the current token).
+
+    GQA without repeating K/V: q reshapes to [B, Hkv, group, D] and
+    contracts the cache.  As the reference's ``dot_general`` with
+    ``preferred_element_type=float32``: q is rounded to the cache's dtype
+    and the products of cache-dtype values are summed in float32 (exact
+    products in float32, then float32 sums), and the probabilities are
+    rounded to the cache's dtype before the value product.
+    """
+    b, hq, _, d = q.shape
+    k, v = cache["k"], cache["v"]
+    _, hkv, smax, _ = k.shape
+    group = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qg = q[:, :, 0, :].reshape(b, hkv, group, d).to(k.dtype).float()
+    logits = torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    kpos = torch.arange(smax, device=q.device)
+    n = cache["len"]
+    if rolling:
+        valid = kpos < min(n, smax)
+    else:
+        valid = kpos < n
+        if window is not None:
+            valid = valid & (kpos >= n - window)
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def cache_update(cache, k_new, v_new, *, rolling: bool = False):
+    """Write one position (k/v [B,Hkv,1,hd]) at cache['len'] (mod window
+    when rolling), in place; returns the cache with ``len`` advanced."""
+    smax = cache["k"].shape[2]
+    pos = cache["len"] % smax if rolling else cache["len"]
+    cache["k"][:, :, pos] = k_new[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, :, pos] = v_new[:, :, 0].to(cache["v"].dtype)
+    return {"k": cache["k"], "v": cache["v"], "len": cache["len"] + 1}
+
+
+# --------------------------------------------------------------------------
+# Full GQA block
+# --------------------------------------------------------------------------
+
+class AttnSpec:
+    """Static attention configuration for one layer."""
+
+    def __init__(self, d_model: int, num_heads: int, num_kv_heads: int,
+                 head_dim: int, *, qkv_bias=False, window=None,
+                 softcap=None, rope_theta=10000.0, mrope=False,
+                 causal=True, query_scale: Optional[float] = None):
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
+        self.qkv_bias = qkv_bias
+        self.window = window
+        self.softcap = softcap
+        self.rope_theta = rope_theta
+        self.mrope = mrope
+        self.causal = causal
+        self.query_scale = query_scale
+
+
+def attn_init(gen: torch.Generator, spec: AttnSpec):
+    d, h, hkv, hd = (spec.d_model, spec.num_heads, spec.num_kv_heads,
+                     spec.head_dim)
+    p = {"wq": dense_init(gen, d, h * hd),
+         "wk": dense_init(gen, d, hkv * hd),
+         "wv": dense_init(gen, d, hkv * hd),
+         "wo": dense_init(gen, h * hd, d)}
+    if spec.qkv_bias:
+        for name, n in (("wq_bias", h), ("wk_bias", hkv), ("wv_bias", hkv)):
+            p[name] = torch.zeros((n * hd,), dtype=torch.float32,
+                                  device=gen.device)
+    return p
+
+
+def _project_qkv(x, p, spec: AttnSpec, positions):
+    b, s, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if spec.qkv_bias:
+        q = q + p["wq_bias"].to(x.dtype)
+        k = k + p["wk_bias"].to(x.dtype)
+        v = v + p["wv_bias"].to(x.dtype)
+    q = q.reshape(b, s, spec.num_heads, spec.head_dim).transpose(1, 2)
+    k = k.reshape(b, s, spec.num_kv_heads, spec.head_dim).transpose(1, 2)
+    v = v.reshape(b, s, spec.num_kv_heads, spec.head_dim).transpose(1, 2)
+    if positions is not None:
+        fn = mrope if spec.mrope else rope
+        q = fn(q, positions, spec.rope_theta)
+        k = fn(k, positions, spec.rope_theta)
+    return q, k, v
+
+
+def attn_apply(x, p, spec: AttnSpec, positions, *,
+               kv: Optional[Tuple] = None,
+               cache: Optional[dict] = None, rolling: bool = False):
+    """Returns (out [B,S,D], updated cache or None).
+
+    Training/prefill: cache None → full attention over x (or ``kv`` for
+    cross-attention).  Decode: S==1 with a cache → append + attend.
+    """
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, p, spec, positions)
+    if kv is not None:                       # cross-attention (enc-dec)
+        k, v = kv
+    if cache is not None:
+        cache = cache_update(cache, k, v, rolling=rolling)
+        out = decode_attention(q, cache, window=spec.window,
+                               softcap=spec.softcap, rolling=rolling)
+    else:
+        out = _attention(q, k, v, causal=spec.causal, window=spec.window,
+                         softcap=spec.softcap, scale=spec.query_scale)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    dt = torch.promote_types(out.dtype, p["wo"].dtype)   # as jnp promotes
+    return out.to(dt) @ p["wo"].to(dt), cache

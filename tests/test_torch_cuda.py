@@ -3,7 +3,8 @@
 Each kernel is held to its plain PyTorch version on the same CUDA inputs
 (exact, except float64 sums, which may differ by summation order only),
 and the fused wave and the coalescing query server run end to end on the
-card against the port's numpy oracle.  Without a GPU every test here skips.  This file imports nothing
+card against the port's numpy oracle; the LM's prefill (through the
+flash-attention and ssm_scan kernels) is held to its plain decode path.  Without a GPU every test here skips.  This file imports nothing
 of ``jax`` or ``repro``, so a GPU machine without jax runs it with
 
     python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -24,8 +25,13 @@ from repro_torch.exec.refine import (pack_constraints,  # noqa: E402
 from repro_torch.fdb import build_fdb                 # noqa: E402
 from repro_torch.geo import mercator as M             # noqa: E402
 from repro_torch.geo.areatree import AreaTree         # noqa: E402
+from repro_torch.configs import get_config            # noqa: E402
 from repro_torch.kernels import (_build, bitset, compact, ops,  # noqa: E402
                                  ref, refine, segment_agg)
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssm_scan as ssm       # noqa: E402
+from repro_torch.launch.serve import Request, Server  # noqa: E402
+from repro_torch.ml.transformer import LM             # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -248,3 +254,132 @@ def test_server_on_card_matches_numpy_oracle(card):
         total += len(want)
     assert total > 0
     assert srv.stats()["coalesced_batches"] == 1
+
+
+@pytest.fixture
+def fp32_card(card):
+    """The card with TF32 off for every float32 product and convolution."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return card
+
+
+FLASH_CASES = [   # (b, hq, hkv, sq, skv, d), options
+    ((2, 4, 2, 128, 128, 64), {}),
+    ((1, 8, 8, 64, 64, 128), {}),
+    ((1, 2, 1, 100, 200, 64), {}),                 # ragged, decode offset
+    ((1, 4, 2, 1, 384, 64), {}),                   # single token
+    ((2, 15, 5, 300, 300, 64), {}),                # smollm heads
+    ((1, 32, 8, 130, 130, 128), {}),               # Jamba heads
+    ((1, 2, 1, 256, 256, 64), {"window": 64}),
+    ((1, 2, 2, 128, 128, 64), {"softcap": 30.0}),
+    ((1, 2, 1, 192, 192, 256), {"window": 50, "softcap": 20.0}),
+    ((3, 4, 2, 70, 90, 16), {"window": 7}),
+    ((1, 2, 1, 33, 33, 32), {"causal": False}),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kw", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(fp32_card, shape, kw, dtype):
+    b, hq, hkv, sq, skv, d = shape
+    g = torch.Generator(device=fp32_card).manual_seed(sum(shape))
+    q = torch.randn((b, hq, sq, d), generator=g, device=fp32_card)
+    k = torch.randn((b, hkv, skv, d), generator=g, device=fp32_card)
+    v = torch.randn((b, hkv, skv, d), generator=g, device=fp32_card)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = _build.kernel_launches().get("flash_attention", 0)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _build.kernel_launches()["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 3e-3 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_attention_kernel_fully_masked_rows_are_zero(card):
+    """Sq > Skv: the first Sq - Skv queries see no key.  The kernel gives
+    them 0, as the TPU kernel; the plain version the mean of V, as the
+    JAX reference.  The other rows agree."""
+    g = torch.Generator(device=card).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=card)
+               for s in ((1, 2, 80, 64), (1, 1, 50, 64), (1, 1, 50, 64)))
+    got = fa.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    assert bool((got[:, :, :30] == 0).all())
+    torch.testing.assert_close(got[:, :, 30:], want[:, :, 30:], rtol=3e-3,
+                               atol=3e-3)
+
+
+def test_flash_attention_kernel_rejects(card):
+    q = torch.zeros((1, 2, 8, 48), device=card)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)                         # head dim 48
+    q = torch.zeros((1, 2, 8, 64), device=card, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)                         # float16
+
+
+@pytest.mark.parametrize("b,l,d,with_h0", [(2, 64, 32, False),
+                                           (1, 500, 130, True),
+                                           (3, 1024, 16, True),
+                                           (4, 256, 8192 * 16, True),
+                                           (1, 7, 260, False)])
+def test_ssm_scan_kernel_matches_plain(card, b, l, d, with_h0):
+    g = torch.Generator(device=card).manual_seed(l)
+    a = torch.rand((b, l, d), generator=g, device=card) * 0.5 + 0.5
+    bx = torch.randn((b, l, d), generator=g, device=card)
+    h0 = torch.randn((b, d), generator=g, device=card) if with_h0 else None
+    before = _build.kernel_launches().get("ssm_scan", 0)
+    h, hT = ssm.ssm_scan(a, bx, h0)
+    torch.cuda.synchronize()
+    assert _build.kernel_launches()["ssm_scan"] == before + 1
+    hr, hTr = ref.ssm_scan_ref(a, bx, h0)
+    torch.testing.assert_close(h, hr, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(hT, hTr, rtol=3e-4, atol=3e-4)
+
+
+def _lm_consistency(arch, dev, s=300):
+    """Float32, dropless MoE: decode logits at position s-1 after a
+    prefill of s-1 tokens against the prefill's logits over s tokens."""
+    from dataclasses import replace
+    cfg = replace(get_config(arch).reduced(), act_dtype="float32")
+    if cfg.moe_experts:
+        cfg = replace(cfg, moe_capacity_factor=float(cfg.moe_experts))
+    lm = LM(cfg)
+    p = lm.init(seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    ops.reset_launch_counts()
+    want, _ = lm.prefill(p, toks)
+    _, caches = lm.prefill(p, toks[:, :-1])
+    got, _ = lm.decode_step(p, toks[:, -1:], caches, s - 1)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err < 0.02, err
+    assert bool((got.argmax(-1) == want.argmax(-1)).all())
+    return ops.launch_counts()
+
+
+def test_lm_prefill_decode_consistency_on_card(fp32_card):
+    with torch.inference_mode():
+        lc = _lm_consistency("smollm_360m", fp32_card)
+        assert lc == {"flash_attention": 2 * 2}
+        lc = _lm_consistency("jamba_v0_1_52b", fp32_card)
+        # 14 Mamba layers, 2 chunks of 256 for 300 and for 299 tokens
+        assert lc == {"flash_attention": 2 * 2, "ssm_scan": 2 * 14 * 2}
+
+
+def test_server_on_card(card):
+    srv = Server(get_config("jamba_v0_1_52b"), max_batch=4)
+    assert srv.params["embed"].is_cuda
+    rng = np.random.default_rng(0)
+    reqs = [Request(i, rng.integers(0, srv.cfg.vocab_size,
+                                    rng.integers(4, 40)).astype(np.int32),
+                    max_new=5) for i in range(6)]
+    _build.reset_kernel_launches()
+    srv.serve(reqs)
+    assert all(r.done and len(r.out) == 5 for r in reqs)
+    assert _build.kernel_launches() == {"flash_attention": 2 * 2,
+                                        "ssm_scan": 2 * 14}

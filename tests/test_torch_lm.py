@@ -1,0 +1,524 @@
+"""The port's LM serving path held against the JAX package.
+
+On the CPU the port's kernel wrappers run their plain PyTorch versions.
+These tests hold
+
+- the plain ``flash_attention`` and ``ssm_scan`` to the Pallas kernels
+  (``interpret=True``) and ``repro/kernels/ref.py``;
+- each layer (RoPE, norms, attention, Mamba, MoE) to its JAX counterpart;
+- ``LM.prefill`` / ``decode_step`` and ``Server.serve`` to the reference
+  ``LM(impl="reference")`` and ``Server``, with the reference's own
+  parameters carried over (``ml.params.from_jax_params``);
+
+on the same inputs, made with numpy from a seed.  The CUDA kernels are
+held to these plain versions on the card by ``tests/test_torch_cuda.py``
+and ``chip_smoke.py``.
+
+Tolerances: float32 computations agree to float32 rounding (the kernels
+1e-3 relative or 3e-3 absolute on unit-normal inputs, as the JAX
+package's own kernel tests); the decode caches are bfloat16 in both
+packages, so a float32 ulp in a key or query can flip one bf16 rounding
+(relative 2^-8 on one element), which bounds decode logits at 2e-3 of
+their max in float32.  In bfloat16 the two packages round at different
+places (the flash kernel keeps probabilities in float32 where the
+reference's chunked attention rounds them; products sum in another
+order), so each is a bf16 run away from the float32 answer: the port's
+bf16 logits are held within twice the reference's own bf16-to-float32
+distance (at least 3e-2 of max |logit|).
+"""
+import os
+import subprocess
+import sys
+from dataclasses import fields, replace
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax                                            # noqa: E402
+import jax.numpy as jnp                               # noqa: E402
+
+from repro.configs import get_config as jget_config   # noqa: E402
+from repro.configs import list_archs                  # noqa: E402
+from repro.kernels import flash_attention as jfa      # noqa: E402
+from repro.kernels import ref as jref                 # noqa: E402
+from repro.kernels import ssm_scan as jssm            # noqa: E402
+from repro.launch.serve import Request as JRequest    # noqa: E402
+from repro.launch.serve import Server as JServer      # noqa: E402
+from repro.ml import attention as JA                  # noqa: E402
+from repro.ml import layers as JLy                    # noqa: E402
+from repro.ml import mamba as JMb                     # noqa: E402
+from repro.ml import moe as JMoe                      # noqa: E402
+from repro.ml.transformer import LM as JLM            # noqa: E402
+
+from repro_torch.configs import get_config           # noqa: E402
+from repro_torch.kernels import ops                   # noqa: E402
+from repro_torch.launch import serve as tserve        # noqa: E402
+from repro_torch.ml import attention as TA            # noqa: E402
+from repro_torch.ml import layers as TLy              # noqa: E402
+from repro_torch.ml import mamba as TMb               # noqa: E402
+from repro_torch.ml import moe as TMoe                # noqa: E402
+from repro_torch.ml.params import (from_jax_params,   # noqa: E402
+                                   storage_dtype, tree_map)
+from repro_torch.ml.transformer import LM             # noqa: E402
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+#: every config made only of ported blocks (all but xLSTM and Whisper)
+PORTED = ["qwen1_5_0_5b", "gemma3_12b", "smollm_360m", "command_r_35b",
+          "mixtral_8x7b", "llama4_scout_17b_a16e", "jamba_v0_1_52b",
+          "qwen2_vl_7b"]
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def _j(a, dtype=jnp.float32):
+    return jnp.asarray(np.asarray(a, np.float32)).astype(dtype)
+
+
+def _params(tree):
+    """A JAX parameter tree as float32 CPU tensors."""
+    return tree_map(lambda a, _: _t(np.asarray(a)),
+                    jax.tree_util.tree_map(np.asarray, tree))
+
+
+def _fields(cfg):
+    return {f.name: getattr(cfg, f.name) for f in fields(cfg)}
+
+
+def _rel(got, want):
+    return float(np.abs(_np(got) - _np(want)).max()
+                 / (np.abs(_np(want)).max() + 1e-6))
+
+
+# ------------------------------------------------------ flash attention
+
+def _fa_inputs(seed, b, hq, hkv, sq, skv, d):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, hq, sq, d)), rng.normal(size=(b, hkv, skv, d)),
+            rng.normal(size=(b, hkv, skv, d)))
+
+
+FA_CASES = [
+    ((2, 4, 2, 128, 128, 64), {}),       # GQA causal
+    ((1, 2, 1, 256, 256, 64), {}),
+    ((1, 8, 8, 64, 64, 128), {}),        # MHA
+    ((1, 2, 1, 100, 200, 64), {}),       # ragged + decode offset
+    ((1, 4, 2, 1, 384, 64), {}),         # single-token decode
+    ((1, 2, 1, 256, 256, 64), {"window": 64}),
+    ((1, 2, 2, 128, 128, 64), {"softcap": 30.0}),
+    ((1, 2, 1, 192, 192, 64), {"window": 50, "softcap": 20.0}),
+]
+
+
+@pytest.mark.parametrize("shape,kw", FA_CASES)
+def test_flash_attention_plain_vs_pallas(shape, kw):
+    q, k, v = _fa_inputs(sum(shape), *shape)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), **kw)
+    pallas = jfa.flash_attention(_j(q), _j(k), _j(v), interpret=True,
+                                 block_q=64, block_k=128, **kw)
+    want = jref.flash_attention_ref(_j(q), _j(k), _j(v), **kw)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(_np(got), _np(pallas), rtol=3e-3, atol=3e-3)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=3e-3, atol=3e-3)
+
+
+def test_flash_attention_plain_vs_pallas_bf16():
+    q, k, v = _fa_inputs(7, 1, 2, 1, 128, 128, 64)
+    got = ops.flash_attention(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
+                              _t(v, torch.bfloat16))
+    pallas = jfa.flash_attention(_j(q, jnp.bfloat16), _j(k, jnp.bfloat16),
+                                 _j(v, jnp.bfloat16), interpret=True,
+                                 block_q=64, block_k=64)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got.float()), _np(pallas), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_flash_attention_fully_masked_row_is_mean_of_v():
+    """Sq > Skv puts the first queries before every key: the plain
+    version gives those rows the mean of V, as the JAX reference (the
+    CUDA kernel gives 0, as the Pallas kernel — see test_torch_cuda)."""
+    q, k, v = _fa_inputs(3, 1, 2, 1, 12, 8, 16)
+    got = ops.flash_attention(_t(q), _t(k), _t(v))
+    want = jref.flash_attention_ref(_j(q), _j(k), _j(v))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(got)[0, :, 0], np.broadcast_to(
+        v[0, 0].mean(0), (2, 16)), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_rejects_bad_inputs():
+    q = torch.zeros(1, 3, 4, 16)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, torch.zeros(1, 2, 4, 16),
+                            torch.zeros(1, 2, 4, 16))      # 3 % 2 != 0
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, torch.zeros(1, 3, 4, 8),
+                            torch.zeros(1, 3, 4, 8))       # head dims
+
+
+# ------------------------------------------------------------- SSM scan
+
+@pytest.mark.parametrize("b,l,d", [(2, 64, 32), (1, 500, 130),
+                                   (3, 1024, 16), (1, 7, 260)])
+def test_ssm_scan_plain_vs_pallas(b, l, d):
+    rng = np.random.default_rng(l)
+    a = rng.uniform(0.5, 1.0, (b, l, d))
+    bx = rng.normal(size=(b, l, d))
+    h0 = rng.normal(size=(b, d))
+    hg, hTg = ops.ssm_scan(_t(a), _t(bx))
+    hp, hTp = jssm.ssm_scan(_j(a), _j(bx), interpret=True, chunk=128)
+    np.testing.assert_allclose(_np(hg), _np(hp), rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(_np(hTg), _np(hTp), rtol=3e-4, atol=3e-4)
+    # with a starting state: against the JAX reference's h0
+    hg, hTg = ops.ssm_scan(_t(a), _t(bx), _t(h0))
+    hr, hTr = jref.ssm_scan_ref(_j(a), _j(bx), _j(h0))
+    np.testing.assert_allclose(_np(hg), _np(hr), rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(_np(hTg), _np(hTr), rtol=3e-4, atol=3e-4)
+
+
+def test_ssm_scan_chunks_carry_through_h0():
+    """Two chunks with the first's final state as the second's h0 equal
+    one scan over both."""
+    rng = np.random.default_rng(5)
+    a = _t(rng.uniform(0.2, 1.0, (2, 40, 9)))
+    bx = _t(rng.normal(size=(2, 40, 9)))
+    h, hT = ops.ssm_scan(a, bx)
+    h1, c1 = ops.ssm_scan(a[:, :17].contiguous(), bx[:, :17].contiguous())
+    h2, c2 = ops.ssm_scan(a[:, 17:].contiguous(), bx[:, 17:].contiguous(),
+                          c1)
+    torch.testing.assert_close(torch.cat([h1, h2], 1), h, rtol=0, atol=0)
+    torch.testing.assert_close(c2, hT, rtol=0, atol=0)
+
+
+# --------------------------------------------------------------- layers
+
+def test_configs_match_the_reference():
+    for arch in list_archs():
+        want, got = jget_config(arch), get_config(arch)
+        assert _fields(got) == _fields(want), arch
+        assert _fields(got.reduced()) == _fields(want.reduced()), arch
+        assert got.params_count() == want.params_count()
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_rope_and_mrope(theta):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 3, 9, 16))
+    pos = np.stack([np.arange(9) + 5, np.arange(9) * 3]).astype(np.int32)
+    got = TLy.rope(_t(x), torch.from_numpy(pos), theta)
+    want = JLy.rope(_j(x), jnp.asarray(pos), theta)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    pos3 = np.stack([pos, pos + 1, pos * 2])
+    got = TLy.mrope(_t(x), torch.from_numpy(pos3), theta)
+    want = JLy.mrope(_j(x), jnp.asarray(pos3), theta)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+
+
+def test_norms_and_activations():
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(3, 5, 32)) * 3
+    p = {"scale": rng.normal(size=32), "bias": rng.normal(size=32)}
+    tp = {k: _t(v) for k, v in p.items()}
+    jp = {k: _j(v) for k, v in p.items()}
+    for dt, jdt, tol in ((torch.float32, jnp.float32, 1e-5),
+                         (torch.bfloat16, jnp.bfloat16, 1e-2)):
+        got = TLy.rms_norm(_t(x, dt), tp)
+        assert got.dtype == dt
+        np.testing.assert_allclose(_np(got.float()),
+                                   _np(JLy.rms_norm(_j(x, jdt), jp)),
+                                   rtol=tol, atol=tol)
+        np.testing.assert_allclose(_np(TLy.layer_norm(_t(x, dt), tp).float()),
+                                   _np(JLy.layer_norm(_j(x, jdt), jp)),
+                                   rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(TLy.gelu(_t(x))), _np(JLy.gelu(_j(x))),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(TLy.silu(_t(x))), _np(JLy.silu(_j(x))),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("window,softcap,bias", [(None, None, True),
+                                                 (6, 30.0, False)])
+def test_attn_apply_prefill_and_decode(window, softcap, bias):
+    spec_kw = dict(qkv_bias=bias, window=window, softcap=softcap)
+    jspec = JA.AttnSpec(32, 4, 2, 8, **spec_kw)
+    tspec = TA.AttnSpec(32, 4, 2, 8, **spec_kw)
+    jp = JA.attn_init(jax.random.key(3), jspec)
+    if bias:
+        jp = {k: (v + 0.1 if k.endswith("bias") else v)
+              for k, v in jp.items()}
+    tp = _params(jp)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 11, 32))
+    pos = np.broadcast_to(np.arange(11, dtype=np.int32), (2, 11))
+    want, _ = JA.attn_apply(_j(x), jp, jspec, jnp.asarray(pos))
+    got, _ = TA.attn_apply(_t(x), tp, tspec, torch.from_numpy(pos.copy()))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    # decode one token against a cache holding 10 positions (rolling when
+    # windowed: the cache holds the window, written modulo)
+    rolling = window is not None
+    smax = window if rolling else 16
+    kc = rng.normal(size=(2, 2, smax, 8))
+    vc = rng.normal(size=(2, 2, smax, 8))
+    xt = rng.normal(size=(2, 1, 32))
+    pt = np.full((2, 1), 10, np.int32)
+    jc = {"k": _j(kc, jnp.bfloat16), "v": _j(vc, jnp.bfloat16),
+          "len": jnp.asarray(10, jnp.int32)}
+    tc = {"k": _t(kc, torch.bfloat16), "v": _t(vc, torch.bfloat16),
+          "len": 10}
+    want, jc = JA.attn_apply(_j(xt), jp, jspec, jnp.asarray(pt), cache=jc,
+                             rolling=rolling)
+    got, tc = TA.attn_apply(_t(xt), tp, tspec, torch.from_numpy(pt),
+                            cache=tc, rolling=rolling)
+    assert tc["len"] == int(jc["len"]) == 11
+    np.testing.assert_array_equal(_np(tc["k"].float()), _np(jc["k"]))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-3, atol=2e-3)
+
+
+def _mamba(d=32, state=4):
+    jp = JMb.mamba_init(jax.random.key(5), d, state=state)
+    jp = dict(jp, conv_b=jp["conv_b"] + 0.05, dt_bias=jp["dt_bias"] - 0.5)
+    return jp, _params(jp)
+
+
+@pytest.mark.parametrize("s,chunk", [(40, 16), (16, 256), (3, 2)])
+def test_mamba_apply_and_state(s, chunk):
+    jp, tp = _mamba()
+    x = np.random.default_rng(s).normal(size=(2, s, 32))
+    want, jst = JMb.mamba_apply(_j(x), jp, chunk=chunk, return_state=True)
+    got, tst = TMb.mamba_apply(_t(x), tp, chunk=chunk, return_state=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    for key in ("h", "conv"):
+        assert tst[key].shape == jst[key].shape
+        np.testing.assert_allclose(_np(tst[key]), _np(jst[key]), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_mamba_apply_launches_one_scan_a_chunk():
+    jp, tp = _mamba()
+    ops.reset_launch_counts()
+    TMb.mamba_apply(_t(np.ones((1, 37, 32))), tp, chunk=8)
+    assert ops.launch_counts() == {"ssm_scan": 5}
+
+
+def test_mamba_decode_with_state():
+    jp, tp = _mamba()
+    x = np.random.default_rng(8).normal(size=(2, 9, 32))
+    _, jst = JMb.mamba_apply(_j(x[:, :8]), jp, return_state=True)
+    _, tst = TMb.mamba_apply(_t(x[:, :8]), tp, return_state=True)
+    want, jnew = JMb.mamba_decode(_j(x[:, 8:]), jp, jst)
+    got, tnew = TMb.mamba_decode(_t(x[:, 8:]), tp, tst)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    for key in ("h", "conv"):
+        np.testing.assert_allclose(_np(tnew[key]), _np(jnew[key]),
+                                   rtol=1e-4, atol=1e-4)
+    # the step continues the sequence: equal to the full-sequence forward
+    full, _ = TMb.mamba_apply(_t(x), tp, return_state=True)
+    np.testing.assert_allclose(_np(got[:, 0]), _np(full[:, 8]), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_apply_routing_with_drops(dtype):
+    """Capacity 1.25 with 96 tokens sharing one direction (so that most
+    pick the same expert) drops tokens; the port routes (and drops)
+    exactly as the reference."""
+    jp = JMoe.moe_init(jax.random.key(6), 32, 64, 4)
+    tp = _params(jp)
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 48, 32)) + 2.0 * rng.normal(size=32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want, jaux = JMoe.moe_apply(_j(x, jdt), jp, top_k=2, group_size=32)
+    got, taux = TMoe.moe_apply(_t(x, tdt), tp, top_k=2, group_size=32)
+    # drops happen: the dropless layer gives another output
+    dropless, _ = JMoe.moe_apply(_j(x, jdt), jp, top_k=2, group_size=32,
+                                 capacity_factor=4.0)
+    assert not np.allclose(_np(dropless), _np(want), atol=1e-3)
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5,
+                                   atol=1e-5)
+    else:     # bf16 products summed in another order: one bf16 ulp of max
+        assert _rel(got.float(), want) < 2e-2
+    np.testing.assert_allclose(float(taux["load_balance"]),
+                               float(jaux["load_balance"]), rtol=1e-5)
+    np.testing.assert_allclose(float(taux["router_z"]),
+                               float(jaux["router_z"]), rtol=1e-5)
+    zero_rows = (np.abs(_np(want)).sum(-1) == 0).sum()
+    assert (np.abs(_np(got.float())).sum(-1) == 0).sum() == zero_rows
+
+
+# ------------------------------------------------------------------- LM
+
+def _pair(arch, **over):
+    jcfg = replace(jget_config(arch).reduced(), **over)
+    tcfg = replace(get_config(arch).reduced(), **over)
+    jlm = JLM(jcfg, impl="reference")
+    jp = jlm.init(jax.random.key(0))
+    tp = from_jax_params(tcfg, jax.tree_util.tree_map(np.asarray, jp),
+                         device="cpu")
+    return jlm, jp, LM(tcfg), tp
+
+
+def _run(jlm, jp, lm, tp, tokens, steps=3):
+    """Prefill then ``steps`` decode steps, both fed the reference's
+    greedy tokens; returns [(port logits, reference logits)] a step."""
+    s = tokens.shape[1]
+    jl, jc = jlm.prefill(jp, jnp.asarray(tokens))
+    tl, tc = lm.prefill(tp, torch.from_numpy(tokens))
+    out = [(tl, jl)]
+    for t in range(steps):
+        cur = np.asarray(jnp.argmax(jl, axis=-1), np.int32)
+        jl, jc = jlm.decode_step(jp, jnp.asarray(cur), jc, s + t)
+        tl, tc = lm.decode_step(tp, torch.from_numpy(cur), tc, s + t)
+        out.append((tl, jl))
+    return out
+
+
+def _tokens(cfg, b=2, s=40, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_lm_prefill_decode_float32(arch):
+    jlm, jp, lm, tp = _pair(arch, act_dtype="float32")
+    # 40 tokens: past Gemma-3's and Mixtral's reduced window (16), so the
+    # rolling caches wrap
+    steps = _run(jlm, jp, lm, tp, _tokens(lm.cfg))
+    (tl, jl), decode = steps[0], steps[1:]
+    assert tl.shape == jl.shape and tl.dtype == torch.float32
+    assert _rel(tl, jl) < 1e-4
+    assert (_np(tl).argmax(-1) == _np(jl).argmax(-1)).all()
+    for tl, jl in decode:
+        assert _rel(tl, jl) < 2e-3
+
+
+def test_lm_apply_float32():
+    jlm, jp, lm, tp = _pair("jamba_v0_1_52b", act_dtype="float32")
+    toks = _tokens(lm.cfg, s=20)
+    want, jaux = jlm.apply(jp, jnp.asarray(toks))
+    got, taux = lm.apply(tp, torch.from_numpy(toks))
+    assert got.shape == want.shape
+    assert _rel(got, want) < 1e-4
+    np.testing.assert_allclose(float(taux["load_balance"]),
+                               float(jaux["load_balance"]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("smollm_360m", {}),
+    # top-k = all experts, dropless: routing without a discontinuity, so
+    # that a bf16 ulp cannot move a token to another expert (with top-2 of
+    # 4 the reference's own bf16 run moves up to 164% of max |logit| from
+    # its float32 run on these seeds)
+    ("jamba_v0_1_52b", {"moe_top_k": 4, "moe_capacity_factor": 4.0}),
+])
+def test_lm_prefill_decode_bf16(arch, over):
+    jlm, jp, lm, tp = _pair(arch, act_dtype="bfloat16", **over)
+    j32, jp32, _, _ = _pair(arch, act_dtype="float32", **over)
+    toks = _tokens(lm.cfg)
+    assert tp["blocks"]["slot0"]["norm1"]["scale"].dtype == torch.float32
+    bf16 = _run(jlm, jp, lm, tp, toks)
+    # the reference in float32 on the same tokens: its bf16 noise floor
+    s = toks.shape[1]
+    f32 = [j32.prefill(jp32, jnp.asarray(toks))]
+    for t in range(3):
+        cur = np.asarray(jnp.argmax(bf16[t][1], axis=-1), np.int32)
+        f32.append(j32.decode_step(jp32, jnp.asarray(cur), f32[-1][1], s + t))
+    for (tl, jl), (j32l, _) in zip(bf16, f32):
+        scale = np.abs(_np(j32l)).max()
+        noise = np.abs(_np(jl) - _np(j32l)).max() / scale
+        err = np.abs(_np(tl) - _np(jl)).max() / scale
+        assert err <= max(3e-2, 2 * noise), (err, noise)
+
+
+def test_lm_storage_dtypes():
+    cfg = get_config("jamba_v0_1_52b").reduced()
+    p = LM(cfg).init(seed=1, device="cpu")
+    slot0 = p["blocks"]["slot0"]
+    assert p["embed"].dtype == torch.bfloat16
+    assert slot0["mamba"]["in_proj"].dtype == torch.bfloat16
+    assert slot0["mamba"]["x_proj"].dtype == torch.float32
+    assert slot0["mamba"]["A_log"].dtype == torch.float32
+    assert p["blocks"]["slot1"]["moe"]["experts"]["w_up"].shape == (
+        cfg.num_layers // 8, 4, 64, 128)
+    assert storage_dtype(replace(cfg, act_dtype="float32"),
+                         "wq") == torch.float32
+
+
+@pytest.mark.parametrize("arch", ["xlstm_1_3b", "whisper_large_v3"])
+def test_unported_blocks_raise(arch):
+    with pytest.raises(NotImplementedError, match="A11"):
+        LM(get_config(arch).reduced())
+    with pytest.raises(NotImplementedError, match="A11"):
+        tserve.Server(get_config(arch), device="cpu")
+
+
+# --------------------------------------------------------------- server
+
+def _requests(cls, vocab, n=6, seed=0):
+    rng = np.random.default_rng(seed)
+    return [cls(i, rng.integers(0, vocab, rng.integers(4, 24)
+                                ).astype(np.int32), max_new=6)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "jamba_v0_1_52b"])
+def test_server_serve_matches_reference_float32(arch):
+    """The reference Server, re-typed to float32 activations (its params
+    do not depend on the activation dtype), and the port's Server with
+    the reference's params carried over give the same tokens."""
+    ref = JServer(arch, max_batch=4)
+    ref.cfg = replace(ref.cfg, act_dtype="float32")
+    ref.lm = JLM(ref.cfg, impl="reference")
+    ref._prefill = jax.jit(ref.lm.prefill)
+    ref._decode = jax.jit(ref.lm.decode_step)
+    srv = tserve.Server(replace(get_config(arch), act_dtype="float32"),
+                        max_batch=4, device="cpu")
+    assert _fields(srv.cfg) == _fields(ref.cfg)
+    srv.params = from_jax_params(srv.cfg, jax.tree_util.tree_map(
+        np.asarray, ref.params), device="cpu")
+    want = ref.serve(_requests(JRequest, ref.cfg.vocab_size))
+    got = srv.serve(_requests(tserve.Request, srv.cfg.vocab_size))
+    assert all(r.done and len(r.out) == 6 for r in got)
+    assert [r.out for r in got] == [r.out for r in want]
+    assert srv.stats == ref.stats
+
+
+def test_server_launches_flash_per_attention_layer():
+    srv = tserve.Server(get_config("jamba_v0_1_52b"), max_batch=4,
+                        device="cpu")
+    ops.reset_launch_counts()
+    reqs = srv.serve(_requests(tserve.Request, srv.cfg.vocab_size, n=5))
+    assert all(len(r.out) == 6 for r in reqs)
+    # two prefills (4 + 1 prompts); 16 layers: 2 attention, 14 Mamba with
+    # one 256-chunk each (prompts < 24 tokens)
+    assert ops.launch_counts() == {"flash_attention": 2 * 2,
+                                   "ssm_scan": 2 * 14}
+
+
+def test_server_without_device_needs_a_gpu(monkeypatch):
+    """``Server(...)`` means CUDA: without a GPU it raises and nothing
+    falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.Server(get_config("smollm_360m"))
+    srv = tserve.Server(get_config("smollm_360m"), device="cpu")
+    assert srv.params["embed"].device.type == "cpu"
+
+
+def test_serve_main_runs_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "smollm_360m", "--requests", "3", "--max_new", "4", "--device",
+         "cpu"], env=env, capture_output=True, text=True, timeout=300,
+        check=True)
+    assert "served 3/3 requests" in out.stdout

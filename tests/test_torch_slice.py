@@ -275,13 +275,21 @@ sess = Session(catalog=cat,
                config=ExecConfig(backend=TorchBackend(device="cpu")))
 res = sess.run(fdb("Trips").tesseract(t).aggregate(
     group(P.day).count("n").std_dev(sd=P.duration_s)))
+import numpy as np
+import repro_torch.configs, repro_torch.ml.attention, repro_torch.ml.layers
+import repro_torch.ml.mamba, repro_torch.ml.moe, repro_torch.ml.params
+import repro_torch.ml.transformer
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import Server
+srv = Server(get_config("jamba_v0_1_52b"), device="cpu")
+srv.generate_batch([np.arange(1, 6, dtype=np.int32)], max_new=2)
 print(json.dumps({"rows": res.batch.n, "modules": sorted(sys.modules)}))
 """
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """In a fresh interpreter the slice runs without pulling in jax or
-    any module of the JAX package."""
+    """In a fresh interpreter the query slice and the LM serving path
+    run without pulling in jax or any module of the JAX package."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _ISOLATED], env=env,
                          capture_output=True, text=True, timeout=300,
@@ -290,3 +298,7 @@ def test_port_imports_neither_jax_nor_repro():
     bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert not bad, bad
     assert "repro_torch.kernels.fused" in mods
+    assert {"repro_torch.launch.serve", "repro_torch.ml.mamba",
+            "repro_torch.ml.moe", "repro_torch.configs.jamba_v0_1_52b",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.ssm_scan"} <= set(mods)
