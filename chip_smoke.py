@@ -46,7 +46,10 @@ around it: it imports nothing of the JAX package.  Phases:
    decode path);
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the largest shape the main path gave it (every refine output mode, both
-   segment_agg branches) and at one larger shape, timed with CUDA events
+   segment_agg branches; compact_batched at the wave's and the serve
+   phase's stacks; flash_attention at each LM configuration's bf16
+   prefill, naming the kernel its dispatch ran — the tensor-core one at
+   head dims 64 and 128) and at one larger shape, timed with CUDA events
    beside the plain version and a library call, and its wrapper's device
    time per call from ``torch.profiler`` (``device_ms``);
 5. profile: per warm query, the fused stages' times, the host functions
@@ -175,6 +178,7 @@ def main() -> int:
     from repro_torch.fdb import build_fdb
     from repro_torch.kernels import _build, bitset, compact, ops, ref, \
         refine, segment_agg
+    from repro_torch.kernels import flash_attention as fa_kernel
     from repro_torch.tess import Tesseract
 
     # ---------------------------------------------------------- 1. device
@@ -851,6 +855,8 @@ def main() -> int:
             for cname, (args, kw) in lm_inputs["flash_attention"].items():
                 per_config[cname] = {
                     "shape": list(args[0].shape),
+                    "kernel": fa_kernel.kernel_for(args[0].dtype,
+                                                   args[0].shape[-1]),
                     **measure(name, *flash_case(torch, *args, **kw), 20, 3,
                               BF16_TENSOR_OPS_PER_S)}
             top = max(lm_inputs["flash_attention"].items(),
@@ -861,8 +867,18 @@ def main() -> int:
             largs = tuple(tile(t, 4, 2) for t in args)
             large = measure(name, *flash_case(torch, *largs, **kw), 10, 1,
                             BF16_TENSOR_OPS_PER_S)
+            large["kernel"] = fa_kernel.kernel_for(largs[0].dtype,
+                                                   largs[0].shape[-1])
             shape, lshape = list(args[0].shape), list(largs[0].shape)
             entry.update(configs=per_config, dtype=str(args[0].dtype))
+            for cname, row in per_config.items():
+                if row["kernel"] != "tensor_core":   # bf16 at hd 64 / 128
+                    fail(f"flash_attention {cname}: the {row['kernel']} "
+                         "kernel ran, not the tensor-core one")
+                print(f"kernel flash_attention[{cname}]: {row['kernel']} "
+                      f"{row['shape']} device {row['device_ms']} ms "
+                      f"(SDPA {row['library_ms']}, bound "
+                      f"{row['bound_ms']:.5f})")
         elif name == "ssm_scan":
             a, bx, h0 = lm_inputs["ssm_scan"]
             wave = measure(name, *ssm_case(torch, a, bx, h0), 20, 2)

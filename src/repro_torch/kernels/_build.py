@@ -52,12 +52,13 @@ SOURCES: Dict[str, Dict[str, str]] = {
     "bitset": {"repro_bitmap_intersect_batched": "pppiiip",
                "repro_bitmap_intersect": "pppiip",
                "repro_bitset_binary": "pppiip"},
-    "compact": {"repro_compact_batched": "pppiip",
+    "compact": {"repro_compact_batched": "ppppiip",
                 "repro_mask_scan": "ppppiip"},
     "segment_agg": {"repro_segment_agg": "ppiipppp"},
     "refine": {"repro_refine_tracks_batched": "pppiiiiiippppp",
                "repro_refine_tracks_multi": "pppiiiiiiippppp"},
-    "flash_attention": {"repro_flash_attention": "ppppiiiiiiiiiffp"},
+    "flash_attention": {"repro_flash_attention_simt": "ppppiiiiiiiiiffp",
+                        "repro_flash_attention_tc": "ppppiiiiiiiiffp"},
     "ssm_scan": {"repro_ssm_scan": "pppppiilp"},
 }
 

@@ -6,10 +6,12 @@ The wrappers of ``csrc/compact.cu``, the ports of the TPU kernels in
 ``repro/kernels/compact.py``: ``compact_batched``
 (``repro_compact_batched``; TPU ``mask_prefix_sum_batched`` +
 ``compact_batched``) and ``mask_prefix_sum`` / ``compact``
-(``repro_mask_scan``, a multi-block scan of one mask).  CUDA tensors
-launch the kernels; CPU tensors run the plain versions
-(``ref.compact_batched_ref``, ``ref.mask_prefix_sum_ref``,
-``ref.compact_ref``).  All give the TPU kernels' output byte for byte.
+(``repro_mask_scan``; TPU ``mask_prefix_sum`` + ``compact``).  Both run
+one multi-block scan over 4096-row tiles, with a shard axis for the wave
+(the single mask is one shard).  CUDA tensors launch the kernels; CPU
+tensors run the plain versions (``ref.compact_batched_ref``,
+``ref.mask_prefix_sum_ref``, ``ref.compact_ref``).  All give the TPU
+kernels' output byte for byte.
 """
 from __future__ import annotations
 
@@ -20,8 +22,14 @@ from . import ref as _ref
 
 __all__ = ["compact_batched", "mask_prefix_sum", "compact", "SCAN_TILE"]
 
-#: mask rows per block of the single-mask scan (256 threads × 16 bytes)
+#: mask rows per block of the scan (256 threads × 16 bytes)
 SCAN_TILE = 4096
+
+
+def _scratch(shards: int, n: int, device) -> torch.Tensor:
+    """The scan's tile counts and offsets: 2 · shards · ⌈n / 4096⌉ int32."""
+    return torch.empty((2 * shards * -(-n // SCAN_TILE),),
+                       dtype=torch.int32, device=device)
 
 
 def compact_batched(masks: torch.Tensor):
@@ -35,10 +43,14 @@ def compact_batched(masks: torch.Tensor):
         return (torch.full((s, n), -1, dtype=torch.int32,
                            device=masks.device),
                 torch.zeros((s,), dtype=torch.int32, device=masks.device))
+    if s > 65535:
+        raise ValueError(f"compact_batched: the kernel's grid takes at most "
+                         f"65535 shards, got {s}")
     idx = torch.empty((s, n), dtype=torch.int32, device=masks.device)
     counts = torch.empty((s,), dtype=torch.int32, device=masks.device)
     _build.launch("compact_batched", "compact", "repro_compact_batched",
-                  masks.device, masks, idx, counts, s, n)
+                  masks.device, masks, idx, counts,
+                  _scratch(s, n, masks.device), s, n)
     return idx, counts
 
 
@@ -51,10 +63,8 @@ def _mask_scan(mask: torch.Tensor, ids: bool, counter: str):
                 torch.zeros((), dtype=torch.int32, device=dev))
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     count = torch.empty((1,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2 * -(-n // SCAN_TILE),), dtype=torch.int32,
-                          device=dev)
     _build.launch(counter, "compact", "repro_mask_scan", dev, mask, out,
-                  count, scratch, n, int(ids))
+                  count, _scratch(1, n, dev), n, int(ids))
     return out, count[0]
 
 

@@ -1,21 +1,26 @@
 """Forward flash attention (GQA, causal with a decode offset, sliding
 window, tanh soft-capping).
 
-The wrapper of ``csrc/flash_attention.cu`` (``repro_flash_attention``),
-the port of the TPU kernel ``repro/kernels/flash_attention.py``
-``flash_attention``.  CUDA tensors launch the kernel (float32 or bfloat16,
-head dims 16, 32, 64, 128 or 256); CPU tensors run the plain version
-(``ref.flash_attention_ref``).  Both compute in float32 and return q's
+The wrapper of ``csrc/flash_attention.cu``, the port of the TPU kernel
+``repro/kernels/flash_attention.py`` ``flash_attention``.  CUDA tensors
+launch one of two kernels, picked by :func:`kernel_for` from the dtype and
+the head dim alone: bfloat16 at head dims 64 and 128 runs on the tensor
+cores (``repro_flash_attention_tc``: wgmma products, TMA copies), float32
+and bfloat16 at head dims 16, 32 and 256 on the SIMT kernel
+(``repro_flash_attention_simt``: fp32 products).  Either counts as one
+``flash_attention`` launch.  CPU tensors run the plain version
+(``ref.flash_attention_ref``).  All accumulate in float32 and return q's
 dtype.
 
-Tolerance: the kernel sums in another order than the plain version and
-takes its exponentials per 64-key tile (online softmax), so outputs agree
-to float32 rounding (3e-3 absolute on unit-normal inputs, as the JAX
-package holds its Pallas kernel), and to one bfloat16 rounding of the
-output (3e-2) in bfloat16.  A query row with every key masked (only
-possible when Sq > Skv) comes out 0 from the kernel, as from the TPU
-kernel, and as the mean of V from the plain version, as from the JAX
-reference; the LM never makes one.
+Tolerance: the kernels sum in another order than the plain version and
+take their exponentials per 64-key tile (online softmax), so outputs
+agree to float32 rounding (3e-3 absolute on unit-normal inputs, as the JAX
+package holds its Pallas kernel), and in bfloat16 to 3e-2: one bfloat16
+rounding of the output, and on the tensor cores the probabilities' own
+bfloat16 rounding before the value product.  A query row with every key
+masked (only possible when Sq > Skv) comes out 0 from either kernel, as
+from the TPU kernel, and as the mean of V from the plain version, as from
+the JAX reference; the LM never makes one.
 """
 from __future__ import annotations
 
@@ -26,10 +31,25 @@ import torch
 from . import _build
 from . import ref as _ref
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "kernel_for", "HEAD_DIMS",
+           "TENSOR_CORE_HEAD_DIMS"]
 
-#: head dims the CUDA kernel is built for
+#: head dims the CUDA kernels are built for
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims of the tensor-core kernel (bfloat16 only)
+TENSOR_CORE_HEAD_DIMS = (64, 128)
+_ENTRIES = {"tensor_core": "repro_flash_attention_tc",
+            "simt": "repro_flash_attention_simt"}
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel a call with q of ``dtype`` and ``head_dim`` runs:
+    ``"tensor_core"`` for bfloat16 at head dims 64 and 128, else
+    ``"simt"`` (float32 keeps full float32 products: TF32 would break its
+    3e-3 tolerance)."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core"
+    return "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -70,10 +90,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    scale_v = scale if scale is not None else 1.0 / math.sqrt(d)
-    _build.launch("flash_attention", "flash_attention",
-                  "repro_flash_attention", q.device, q, k, v, out, b, hq,
-                  hkv, sq, skv, d, int(causal), int(window or 0),
-                  int(q.dtype == torch.bfloat16), float(scale_v),
-                  float(softcap or 0.0))
+    scale_v = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    opts = (int(causal), int(window or 0))
+    kernel = kernel_for(q.dtype, d)
+    if kernel == "simt":
+        opts += (int(q.dtype == torch.bfloat16),)
+    elif any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core kernel's copies (TMA) need "
+                         "16-byte aligned q, k and v")
+    _build.launch("flash_attention", "flash_attention", _ENTRIES[kernel],
+                  q.device, q, k, v, out, b, hq, hkv, sq, skv, d, *opts,
+                  scale_v, float(softcap or 0.0))
     return out

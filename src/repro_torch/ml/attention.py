@@ -43,7 +43,7 @@ def _attention(q, k, v, *, causal, window, softcap, scale):
 # --------------------------------------------------------------------------
 
 def init_cache(batch: int, num_kv_heads: int, max_len: int, head_dim: int,
-               dtype=torch.bfloat16, device=None):
+               dtype=torch.bfloat16, device="cuda"):
     return {"k": torch.zeros((batch, num_kv_heads, max_len, head_dim),
                              dtype=dtype, device=device),
             "v": torch.zeros((batch, num_kv_heads, max_len, head_dim),

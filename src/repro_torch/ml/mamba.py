@@ -115,7 +115,7 @@ def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False):
     return out
 
 
-def mamba_cache_init(batch: int, p, device=None):
+def mamba_cache_init(batch: int, p, device="cuda"):
     di, k = p["conv_w"].shape
     n = p["A_log"].shape[1]
     return {"h": torch.zeros((batch, di, n), device=device),

@@ -264,8 +264,9 @@ class LM:
         return self._logits(p, x), aux
 
     # ---------------------------------------------------------- serving
-    def init_caches(self, batch: int, max_len: int, device=None):
-        """Stacked per-slot caches [G, ...]."""
+    def init_caches(self, batch: int, max_len: int, device="cuda"):
+        """Stacked per-slot caches [G, ...] on ``device`` (the card unless
+        the caller asks for the CPU, as :meth:`init`)."""
         cfg = self.cfg
         g = self.groups
         caches = {}

@@ -115,6 +115,34 @@ def test_compact_batched(s, n, density):
         assert np.array_equal(cnt.numpy(), np.asarray(want_cnt))
 
 
+def _edge_masks(s, n, kind):
+    """[s, n] masks: all False, all True, or random at a density drawn per
+    shard (an empty shard and a full one among them when s > 2)."""
+    if kind == "none":
+        return np.zeros((s, n), bool)
+    if kind == "all":
+        return np.ones((s, n), bool)
+    rng = np.random.default_rng(n + s)
+    masks = rng.random((s, n)) < rng.random((s, 1))
+    if s > 2:
+        masks[1], masks[2] = False, True
+    return masks
+
+
+@pytest.mark.parametrize("kind", ["none", "all", "random"])
+@pytest.mark.parametrize("s", [1, 3, 128])
+@pytest.mark.parametrize("n", [4095, 4096, 4097, 12289])
+def test_compact_batched_tile_edges(n, s, kind):
+    """Masks that straddle the CUDA kernel's 4096-row scan tile: the plain
+    version against the TPU kernel in interpret mode, byte for byte."""
+    masks = _edge_masks(s, n, kind)
+    idx, cnt = compact.compact_batched(torch.from_numpy(masks))
+    jidx, jcnt = jcompact.compact_batched(jnp.asarray(masks), interpret=True)
+    assert idx.dtype == cnt.dtype == torch.int32
+    assert np.array_equal(idx.numpy(), np.asarray(jidx))
+    assert np.array_equal(cnt.numpy(), np.asarray(jcnt))
+
+
 @pytest.mark.parametrize("shape", [(0, 7), (3, 0), (0, 0)])
 def test_compact_batched_empty(shape):
     masks = np.zeros(shape, bool)

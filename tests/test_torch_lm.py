@@ -54,6 +54,7 @@ from repro.ml import moe as JMoe                      # noqa: E402
 from repro.ml.transformer import LM as JLM            # noqa: E402
 
 from repro_torch.configs import get_config           # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops                   # noqa: E402
 from repro_torch.launch import serve as tserve        # noqa: E402
 from repro_torch.ml import attention as TA            # noqa: E402
@@ -153,6 +154,17 @@ def test_flash_attention_fully_masked_row_is_mean_of_v():
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(_np(got)[0, :, 0], np.broadcast_to(
         v[0, 0].mean(0), (2, 16)), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_dispatch(dtype, head_dim):
+    """The CUDA kernel a call runs is a function of (dtype, head dim)
+    alone: bfloat16 at head dims 64 and 128 on the tensor cores, the rest
+    (float32 everywhere, bf16 at 16/32/256) on the SIMT kernel."""
+    want = ("tensor_core" if dtype == torch.bfloat16
+            and head_dim in (64, 128) else "simt")
+    assert tfa.kernel_for(dtype, head_dim) == want
 
 
 def test_flash_attention_rejects_bad_inputs():
@@ -512,6 +524,53 @@ def test_server_without_device_needs_a_gpu(monkeypatch):
         tserve.Server(get_config("smollm_360m"))
     srv = tserve.Server(get_config("smollm_360m"), device="cpu")
     assert srv.params["embed"].device.type == "cpu"
+
+
+def _cache_leaves(caches):
+    return [t for c in caches.values() for t in c.values()
+            if isinstance(t, torch.Tensor)]
+
+
+def test_cache_helpers_default_to_the_card():
+    """``LM.init_caches``, ``init_cache`` and ``mamba_cache_init`` build
+    on the card unless asked for the CPU, as ``LM.init``: without a GPU
+    the default raises and nothing lands on the CPU."""
+    lm = LM(get_config("jamba_v0_1_52b").reduced())
+    mamba = {"conv_w": torch.zeros((32, 4)), "A_log": torch.zeros((32, 8))}
+    calls = [lambda: lm.init_caches(2, 8),
+             lambda: TA.init_cache(2, 2, 8, 16),
+             lambda: TMb.mamba_cache_init(2, mamba)]
+    for call in calls:
+        if torch.cuda.is_available():
+            out = call()
+            leaves = _cache_leaves(out) if "slot0" in out else [
+                t for t in out.values() if isinstance(t, torch.Tensor)]
+            assert all(t.is_cuda for t in leaves)
+        else:
+            with pytest.raises((AssertionError, RuntimeError),
+                               match="CUDA"):
+                call()
+
+
+def test_init_caches_on_the_cpu_when_asked():
+    lm = LM(get_config("jamba_v0_1_52b").reduced())
+    caches = lm.init_caches(2, 8, device="cpu")
+    kinds = {lm.cfg.layer_kind(s) for s in range(lm.cyc)}
+    assert kinds == {"attn", "mamba"}
+    leaves = _cache_leaves(caches)
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
+def test_prefill_caches_follow_the_tokens_device():
+    """``LM.prefill`` builds its caches where its tokens lie, whatever
+    ``init_caches``' default."""
+    lm = LM(get_config("jamba_v0_1_52b").reduced())
+    p = lm.init(seed=0, device="cpu")
+    toks = torch.from_numpy(_tokens(lm.cfg, s=6))
+    with torch.inference_mode():
+        _, caches = lm.prefill(p, toks)
+    leaves = _cache_leaves(caches)
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
 
 
 def test_serve_main_runs_on_the_cpu():
