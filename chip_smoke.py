@@ -46,12 +46,18 @@ around it: it imports nothing of the JAX package.  Phases:
    decode path);
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the largest shape the main path gave it (every refine output mode, both
-   segment_agg branches; compact_batched at the wave's and the serve
-   phase's stacks; flash_attention at each LM configuration's bf16
+   segment_agg branches — the shared one must give the same bits from two
+   calls, and the library call is one ``index_add_`` of (1, v, v²) into
+   [G, 3], beside the sum-only one; compact_batched at the wave's and the
+   serve phase's stacks; flash_attention at each LM configuration's bf16
    prefill, naming the kernel its dispatch ran — the tensor-core one at
    head dims 64 and 128) and at one larger shape, timed with CUDA events
    beside the plain version and a library call, and its wrapper's device
    time per call from ``torch.profiler`` (``device_ms``);
+4b. launch_path: µs a call of each step of a kernel launch through the
+   entry table, of the ``bitset_binary`` and ``segment_agg`` wrappers and
+   of ``torch.bitwise_and``, 10,000 calls a step, the median of 5 turns;
+   each wrapper's launch counter must grow by its calls;
 5. profile: per warm query, the fused stages' times, the host functions
    (``cProfile``) and the device's busy share (``torch.profiler``); per
    serve batch, the host functions and the device's busy share of one
@@ -65,6 +71,11 @@ and timed in phase 4 only.
 
 It prints one ``{"kernels": [...]}`` line and, last, the device line.
 Any mismatch or exception ends it with a non-zero exit code.
+
+    python3 chip_smoke.py --launch-path ROOT
+
+runs phases 2 and 4b alone for the port under ``ROOT/src`` (two trees'
+launch paths compared in one call, one process each).
 
 Tolerances: selections, ids, counts and integer tables are exact.  A
 kernel's float64 sums may differ from the plain version's only by
@@ -91,10 +102,15 @@ WAVE = 8
 WARM_RUNS = 5                  # warm wall time: the median of these
 SCALE = 20.0
 LARGE_POINTS = 1 << 21         # track points per shard at the larger shape
-#: segment_agg.cu accumulates in shared memory up to this many groups
-#: (kSharedMaxGroups) and with global atomics above it
-SEG_SHARED_MAX_GROUPS = 2048
 SEG_BRANCHES = ("global", "shared")
+#: launch_path: calls a step, and its inputs — bitset_binary's words (a
+#: shard bitmap of the retry phase) and segment_agg's wave shapes (rows,
+#: groups, selected share) on each branch
+LAUNCH_PATH_CALLS = 10_000
+LAUNCH_PATH_REPEATS = 5
+LAUNCH_PATH_WORDS = 625
+LAUNCH_PATH_SEG = {"shared": (19_200, 56, 0.0075),
+                   "global": (160_000, 77_888, 0.0049)}
 #: source files of the port, for the host profile (cProfile keys by name)
 PORT_FILES = {p.name for p in (Path(__file__).resolve().parent / "src"
                                / "repro_torch").rglob("*.py")}
@@ -156,9 +172,18 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def seg_branch(groups: int) -> str:
     """The segment_agg kernel that ``groups`` groups launch."""
-    return "shared" if groups <= SEG_SHARED_MAX_GROUPS else "global"
+    from repro_torch.kernels import segment_agg
+    return "shared" if groups <= segment_agg.SHARED_MAX_GROUPS else "global"
 
 
 def main() -> int:
@@ -184,10 +209,7 @@ def main() -> int:
     # ---------------------------------------------------------- 1. device
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi)
     kind = torch.cuda.get_device_name(0)
 
@@ -641,18 +663,23 @@ def main() -> int:
                 s * n + 4 * s * n + 4 * s, s * n)
 
     def segment_case(gid, vals, groups):
-        """The case tuple for :func:`measure`, and the selected share.  The
-        bound counts every group id, the values of selected rows only (the
-        kernel loads no value of a masked row, and the function needs
-        none) and the three [G] outputs; operations are a compare per row
-        and a convert, a multiply and three adds per selected row."""
+        """The case tuple for :func:`measure`, the selected share and a
+        sum-only ``index_add_`` (a third of the function, printed beside
+        the fair call to compare with earlier runs).  The bound counts
+        every group id, the values of selected rows only (the kernel loads
+        no value of a masked row, and the function needs none) and the
+        three [G] outputs; operations are a compare per row and a convert,
+        a multiply and three adds per selected row.  The library call computes the same function: one
+        ``index_add_`` of the selected rows' (1, v, v²) into [G, 3]."""
         n = gid.numel()
-        # the library yardstick sums the selected rows only, as the kernel
-        # does (masked rows folded into one slot would serialise on it)
-        keep = gid >= 0
+        # the yardsticks add the selected rows only, as the kernel does
+        # (masked rows folded into one slot would serialise on it)
+        keep = (gid >= 0) & (gid < groups)
         selected = int(keep.sum())
         lib_idx = gid[keep].to(torch.int64)
         lib_vals = vals[keep].to(torch.float64)
+        lib_cols = torch.stack([torch.ones_like(lib_vals), lib_vals,
+                                lib_vals * lib_vals], dim=1).contiguous()
         # per-group Σ|v| and Σv²: the scale of a reordered sum's error
         scales = ref.segment_agg_ref(gid, vals.abs(), groups)[1:]
 
@@ -667,13 +694,18 @@ def main() -> int:
                 err = max(err, float(d.max()) if d.numel() else 0.0)
             return err
 
-        return (lambda: segment_agg.segment_agg(gid, vals, groups),
-                lambda: ref.segment_agg_ref(gid, vals, groups),
-                lambda: torch.zeros(groups, dtype=torch.float64,
-                                    device=gid.device).index_add_(
-                                        0, lib_idx, lib_vals),
-                compare, 4 * n + 4 * selected + 20 * groups,
-                n + 5 * selected), selected / max(n, 1)
+        def sum_only():
+            return torch.zeros(groups, dtype=torch.float64,
+                               device=gid.device).index_add_(0, lib_idx,
+                                                             lib_vals)
+
+        return ((lambda: segment_agg.segment_agg(gid, vals, groups),
+                 lambda: ref.segment_agg_ref(gid, vals, groups),
+                 lambda: torch.zeros((groups, 3), dtype=torch.float64,
+                                     device=gid.device).index_add_(
+                                         0, lib_idx, lib_cols),
+                 compare, 4 * n + 4 * selected + 20 * groups,
+                 n + 5 * selected), selected / max(n, 1), sum_only)
 
     def refine_case(args, kw):
         pts, rows, cov, docs = args
@@ -900,48 +932,11 @@ def main() -> int:
             entry.update(on_main_path=False, ops_checked=["and", "or",
                                                           "andnot"])
         else:
-            # each branch at its largest main-path input; the top-level
-            # numbers are the global branch's (Q1's wave, the largest)
-            branches = {}
-            for branch in SEG_BRANCHES:
-                gid, vals, groups = captured[(name, branch)][1]
-                case, share = segment_case(gid, vals, groups)
-                wave = measure(name, *case, 200, 20)
-                if branch == "global":    # offset groups: the space grows
-                    big_gid = torch.cat([torch.where(gid >= 0,
-                                                     gid + i * groups, gid)
-                                         for i in range(reps)]).contiguous()
-                    big_groups = groups * reps
-                else:                     # same groups: the branch holds
-                    big_gid, big_groups = tile(gid, reps, 0), groups
-                if seg_branch(big_groups) != branch:
-                    fail(f"segment_agg: the larger shape left the {branch} "
-                         "branch")
-                big_vals = tile(vals, reps, 0)
-                lcase, lshare = segment_case(big_gid, big_vals, big_groups)
-                large = measure(name, *lcase, 50, 5)
-                branches[branch] = {
-                    "launches": seg_branch_launches[branch],
-                    "shape": [gid.numel(), groups], "selected_share": share,
-                    **wave, "large": {"shape": [big_gid.numel(), big_groups],
-                                      "selected_share": lshare, **large}}
-                print(f"kernel segment_agg[{branch}]: wave "
-                      f"{[gid.numel(), groups]} selected {share:.4f} "
-                      f"{wave['ms']:.4f} ms (bound {wave['bound_ms']:.6f}, "
-                      f"plain {wave['plain_ms']:.3f}, index_add_ "
-                      f"{wave['library_ms']:.4f}); large "
-                      f"{[big_gid.numel(), big_groups]} {large['ms']:.4f} ms "
-                      f"(bound {large['bound_ms']:.6f}, plain "
-                      f"{large['plain_ms']:.3f}, index_add_ "
-                      f"{large['library_ms']:.4f})")
-            top = branches["global"]
-            wave = {k: top[k] for k in ("max_abs_err", "ms", "device_ms",
-                                        "plain_ms", "library_ms",
-                                        "bound_ms", "bound_by")}
-            large = {k: v for k, v in top["large"].items() if k != "shape"}
-            shape, lshape = top["shape"], top["large"]["shape"]
-            entry.update(selected_share=top["selected_share"],
-                         branches=branches)
+            entry.update(segment_entry(torch, captured, reps, measure,
+                                       segment_case, cuda_ms,
+                                       seg_branch_launches))
+            wave, large = entry.pop("wave"), entry.pop("large")
+            shape, lshape = entry.pop("shape"), large.pop("shape")
         entry.update(wave)
         entry.update(match=True, kernel_ms=wave["ms"], shape=shape,
                      large={"shape": lshape, **large})
@@ -951,6 +946,7 @@ def main() -> int:
               f"); large {lshape} {large['ms']:.4f} ms (bound "
               f"{large['bound_ms']:.4f}, plain {large['plain_ms']:.3f})")
 
+    print("launch_path " + json.dumps(launch_path(torch, np)))
     profile_queries(torch, queries, sessions)
     profile_serve(torch, batches, serve_backend, cat)
     print(smi)
@@ -959,6 +955,148 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def segment_entry(torch, captured, reps, measure, segment_case, cuda_ms,
+                  branch_launches):
+    """Phase 4 for segment_agg: each branch at its largest main-path input
+    and at a larger shape (the global branch's group space grows with its
+    rows, the shared branch's stays), held to the plain version and timed
+    beside the library call and the sum-only ``index_add_``.  The shared
+    branch must give the same bits from two calls.  Returns the
+    kernels-line entry's keys: the top-level numbers are the global
+    branch's (Q1's wave, the largest)."""
+    branches = {}
+    for branch in SEG_BRANCHES:
+        gid, vals, groups = captured[("segment_agg", branch)][1]
+        if branch == "global":          # offset groups: the space grows
+            big_gid = torch.cat([torch.where(gid >= 0, gid + i * groups, gid)
+                                 for i in range(reps)]).contiguous()
+            big_groups = groups * reps
+        else:                           # same groups: the branch holds
+            big_gid, big_groups = torch.cat([gid] * reps).contiguous(), groups
+        if seg_branch(big_groups) != branch:
+            fail(f"segment_agg: the larger shape left the {branch} branch")
+        big_vals = torch.cat([vals] * reps).contiguous()
+        row = {"launches": branch_launches[branch]}
+        for size, args, iters in (("wave", (gid, vals, groups), (200, 20)),
+                                  ("large", (big_gid, big_vals, big_groups),
+                                   (50, 5))):
+            case, share, sum_only = segment_case(*args)
+            m = measure("segment_agg", *case, *iters)
+            m.update(shape=[args[0].numel(), args[2]], selected_share=share,
+                     library_sum_only_ms=cuda_ms(sum_only, iters[0]))
+            if branch == "shared":
+                first, second = case[0](), case[0]()
+                if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                    fail(f"segment_agg shared {size}: two calls gave "
+                         "different bits")
+                m["bit_identical"] = True
+            row[size] = m
+        branches[branch] = row
+        print(f"kernel segment_agg[{branch}]: " + "; ".join(
+            f"{size} {m['shape']} selected {m['selected_share']:.4f} "
+            f"{m['ms']:.4f} ms, device {m['device_ms']} (bound "
+            f"{m['bound_ms']:.6f}, plain {m['plain_ms']:.3f}, index_add_ "
+            f"[G,3] {m['library_ms']:.4f}, sum-only "
+            f"{m['library_sum_only_ms']:.4f})"
+            for size, m in row.items() if size != "launches"))
+    top = branches["global"]
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")
+    return {"wave": {k: top["wave"][k] for k in keys},
+            "large": {k: top["large"][k] for k in (*keys, "shape")},
+            "shape": top["wave"]["shape"],
+            "selected_share": top["wave"]["selected_share"],
+            "library": "index_add_ of the selected rows' (1, v, v*v) into "
+                       "[G, 3] float64",
+            "branches": branches}
+
+
+def launch_path(torch, np, calls=LAUNCH_PATH_CALLS,
+                repeats=LAUNCH_PATH_REPEATS):
+    """µs a call of each step a kernel launch takes through
+    ``kernels._build`` and of the ``bitset_binary`` and ``segment_agg``
+    wrappers beside ``torch.bitwise_and``: each step ``calls`` times in a
+    row, after 100 untimed calls, on ``time.perf_counter_ns`` with one sync at the end;
+    all steps in turn ``repeats`` times, reporting each step's median
+    (``us``) and least (``us_min``).  Fails unless each wrapper's launch
+    counter grew by its calls."""
+    from collections import Counter
+    from repro_torch.kernels import _build, bitset, ops, segment_agg
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    w = LAUNCH_PATH_WORDS
+
+    def words():
+        return torch.from_numpy(rng.integers(0, 1 << 32, w, dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).to(dev)
+
+    a, b = words(), words()
+    out = torch.empty_like(a)
+    entry = _build.library("bitset").repro_bitset_binary
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pa, pb, po = a.data_ptr(), b.data_ptr(), out.data_ptr()
+    seg = {}
+    for branch, (n, g, share) in LAUNCH_PATH_SEG.items():
+        gid = np.where(rng.random(n) < share, rng.integers(0, g, n), -1)
+        seg[branch] = (torch.from_numpy(gid.astype(np.int32)).to(dev),
+                       torch.from_numpy(rng.uniform(0.0, 130.0, n)
+                                        .astype(np.float32)).to(dev), g)
+    lock, counter = threading.Lock(), Counter()
+    g = LAUNCH_PATH_SEG["shared"][1]
+    slabs = 1 + segment_agg.shared_blocks(LAUNCH_PATH_SEG["shared"][0], g)
+
+    def count():
+        with lock:
+            counter["bitset_binary"] += 1
+
+    steps = {
+        "require": lambda: _build.require(a, "a", torch.int32, 1),
+        "empty_like_out": lambda: torch.empty_like(a),
+        "alloc_outputs_wave": lambda: segment_agg.alloc_outputs(
+            g, dev, slabs=slabs),
+        "data_ptr": a.data_ptr,
+        "current_device": torch.cuda.current_device,
+        "current_stream_by_index": lambda: torch.cuda.current_stream(
+            dev.index).cuda_stream,
+        "ctypes_call_no_launch": lambda: entry(pa, pb, po, 0, 0, stream),
+        "ctypes_call_launch": lambda: entry(pa, pb, po, w, 0, stream),
+        "count": count,
+        "ops_record_launch": lambda: ops.record_launch("launch_path"),
+        "launch": lambda: _build.launch("launch_path", "repro_bitset_binary",
+                                        dev, a, b, out, w, 0),
+        "bitset_binary": lambda: bitset.bitset_binary(a, b),
+        "bitwise_and": lambda: torch.bitwise_and(a, b),
+        "segment_agg_shared_wave": lambda: segment_agg.segment_agg(
+            *seg["shared"]),
+        "segment_agg_global_wave": lambda: segment_agg.segment_agg(
+            *seg["global"]),
+    }
+    before = _build.kernel_launches()
+    runs = {name: [] for name in steps}
+    for _ in range(repeats):              # the host's spread: steps in turn
+        for name, fn in steps.items():
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            runs[name].append((time.perf_counter_ns() - t0) / calls / 1e3)
+    grew = {k: n - before.get(k, 0)
+            for k, n in _build.kernel_launches().items()
+            if n != before.get(k, 0)}
+    per = repeats * (calls + 100)
+    need = {"launch_path": per, "bitset_binary": per, "segment_agg": 2 * per}
+    if grew != need:
+        fail(f"launch_path: launch counters grew by {grew}, expected {need}")
+    us = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
+    return {"calls": calls, "repeats": repeats, "us": us,
+            "us_min": {k: min(v) for k, v in runs.items()}, "launches": grew,
+            "words": w, "segment_agg": {k: list(v) for k, v in
+                                        LAUNCH_PATH_SEG.items()}}
 
 
 def flash_case(torch, q, k, v, **kw):
@@ -1326,5 +1464,25 @@ def profile_queries(torch, queries, sessions) -> None:
             **_device_busy(torch, prof, wall_ms)}))
 
 
+def launch_path_main(root: str) -> int:
+    """``--launch-path ROOT``: build the kernels of the port under
+    ``ROOT/src`` and print its ``launch_path`` line alone — run it once
+    for each of two trees to compare their launch paths in one call."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    import numpy as np
+    from repro_torch.kernels import _build
+    print(card_line())
+    _build.build_all()
+    print("launch_path " + json.dumps({"root": root,
+                                       **launch_path(torch, np)}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--launch-path"]:
+        sys.exit(launch_path_main(sys.argv[2] if len(sys.argv) > 2 else "."))
     sys.exit(main())

@@ -14,7 +14,11 @@ Each C entry point takes its pointers and PyTorch's current stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches (each
 library also exports ``repro_strerror``); :func:`launch` raises on a
 non-zero code, because a refused launch never runs and a later
-synchronise does not report it.
+synchronise does not report it.  Loading binds every entry point once
+into a table of ctypes functions with their argument types set, so a
+launch takes no lock and looks up no symbol: it reads the table, the
+current stream (entering ``torch.cuda.device`` only when the tensors'
+card is not the current one) and calls the entry.
 
 :func:`launch` also bumps the per-kernel launch counter
 (:func:`kernel_launches`).  It is the only place that counts, so a wrapper
@@ -33,7 +37,7 @@ import subprocess
 import threading
 from collections import Counter
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
@@ -54,7 +58,8 @@ SOURCES: Dict[str, Dict[str, str]] = {
                "repro_bitset_binary": "pppiip"},
     "compact": {"repro_compact_batched": "ppppiip",
                 "repro_mask_scan": "ppppiip"},
-    "segment_agg": {"repro_segment_agg": "ppiipppp"},
+    "segment_agg": {"repro_segment_agg_shared": "ppiipip",
+                    "repro_segment_agg_global": "ppiipp"},
     "refine": {"repro_refine_tracks_batched": "pppiiiiiippppp",
                "repro_refine_tracks_multi": "pppiiiiiiippppp"},
     "flash_attention": {"repro_flash_attention_simt": "ppppiiiiiiiiiffp",
@@ -69,6 +74,8 @@ _CTYPE = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
           "f": ctypes.c_float}
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: C entry point name → its ctypes function, argument types set
+_ENTRIES: Dict[str, Callable[..., int]] = {}
 #: nvcc's output (the ptxas register / shared-memory report) per library
 #: built by this process
 BUILD_LOGS: Dict[str, str] = {}
@@ -126,20 +133,31 @@ def build_all() -> Dict[str, Path]:
     return targets
 
 
+def _load() -> None:
+    """Build and load every kernel library, then publish its entry points
+    in ``_ENTRIES`` (done once, under ``_LOCK``)."""
+    with _LOCK:
+        if _ENTRIES:
+            return
+        entries = {}
+        for lname, path in build_all().items():
+            cdll = ctypes.CDLL(str(path))
+            for fn, sig in SOURCES[lname].items():
+                f = getattr(cdll, fn)
+                f.argtypes = [_CTYPE[ch] for ch in sig]
+                f.restype = ctypes.c_int
+                entries[fn] = f
+            cdll.repro_strerror.argtypes = [ctypes.c_int]
+            cdll.repro_strerror.restype = ctypes.c_char_p
+            _LIBS[lname] = cdll
+        _ENTRIES.update(entries)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (building all on first use)."""
-    with _LOCK:
-        if not _LIBS:
-            for lname, path in build_all().items():
-                cdll = ctypes.CDLL(str(path))
-                for fn, sig in SOURCES[lname].items():
-                    f = getattr(cdll, fn)
-                    f.argtypes = [_CTYPE[ch] for ch in sig]
-                    f.restype = ctypes.c_int
-                cdll.repro_strerror.argtypes = [ctypes.c_int]
-                cdll.repro_strerror.restype = ctypes.c_char_p
-                _LIBS[lname] = cdll
-        return _LIBS[name]
+    if not _ENTRIES:
+        _load()
+    return _LIBS[name]
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,
@@ -151,27 +169,34 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
     if t.dtype != dtype or t.dim() != ndim:
         raise ValueError(f"{name}: expected {dtype} of rank {ndim}, got "
                          f"{t.dtype} of shape {tuple(t.shape)}")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.is_cuda:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the CUDA kernel needs a contiguous "
+                             "tensor")
+    elif not t.is_cpu:
         raise ValueError(f"{name}: unsupported device {t.device}")
-    if t.device.type == "cuda" and not t.is_contiguous():
-        raise ValueError(f"{name}: the CUDA kernel needs a contiguous "
-                         "tensor")
 
 
-def launch(counter: str, lib_name: str, entry: str, device: torch.device,
-           *args) -> None:
-    """Call C entry ``entry`` of library ``lib_name`` on ``device``'s
-    current stream; tensors pass as their data pointers (``None`` as a
-    null pointer), numbers as themselves.
-    Raises on a CUDA error, then counts one launch under ``counter``."""
-    lib = library(lib_name)
+def launch(counter: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` on ``device``'s current stream; tensors
+    pass as their data pointers (``None`` as a null pointer), numbers as
+    themselves.  Raises on a CUDA error, then counts one launch under
+    ``counter``."""
+    fn = _ENTRIES.get(entry)
+    if fn is None:
+        _load()
+        fn = _ENTRIES[entry]
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*ptrs, stream)
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*ptrs, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*ptrs, torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
-        msg = lib.repro_strerror(err).decode(errors="replace")
+        lib = next(n for n, e in SOURCES.items() if entry in e)
+        msg = _LIBS[lib].repro_strerror(err).decode(errors="replace")
         raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
     with _LAUNCH_LOCK:
         _LAUNCHES[counter] += 1

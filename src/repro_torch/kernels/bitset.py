@@ -39,9 +39,9 @@ def bitmap_intersect_batched(stack: torch.Tensor):
                 torch.zeros((s,), dtype=torch.int32, device=stack.device))
     out = torch.empty((s, w), dtype=torch.int32, device=stack.device)
     counts = torch.empty((s,), dtype=torch.int32, device=stack.device)
-    _build.launch("bitmap_intersect_batched", "bitset",
-                  "repro_bitmap_intersect_batched", stack.device,
-                  stack, out, counts, s, k, w)
+    _build.launch("bitmap_intersect_batched",
+                  "repro_bitmap_intersect_batched", stack.device, stack, out,
+                  counts, s, k, w)
     return out, counts
 
 
@@ -59,7 +59,7 @@ def bitmap_intersect(stack: torch.Tensor):
                 torch.zeros((), dtype=torch.int32, device=stack.device))
     out = torch.empty((w,), dtype=torch.int32, device=stack.device)
     count = torch.empty((1,), dtype=torch.int32, device=stack.device)
-    _build.launch("bitmap_intersect", "bitset", "repro_bitmap_intersect",
+    _build.launch("bitmap_intersect", "repro_bitmap_intersect",
                   stack.device, stack, out, count, k, w)
     return out, count[0]
 
@@ -76,8 +76,8 @@ def bitset_binary(a: torch.Tensor, b: torch.Tensor, op: str = "and"):
     if a.device.type == "cpu":
         return _ref.bitset_binary_ref(a, b, op)
     w = int(a.shape[0])
-    out = torch.empty((w,), dtype=torch.int32, device=a.device)
+    out = torch.empty_like(a)
     if w:
-        _build.launch("bitset_binary", "bitset", "repro_bitset_binary",
+        _build.launch("bitset_binary", "repro_bitset_binary",
                       a.device, a, b, out, w, BINARY_OPS[op])
     return out

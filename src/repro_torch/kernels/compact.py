@@ -48,7 +48,7 @@ def compact_batched(masks: torch.Tensor):
                          f"65535 shards, got {s}")
     idx = torch.empty((s, n), dtype=torch.int32, device=masks.device)
     counts = torch.empty((s,), dtype=torch.int32, device=masks.device)
-    _build.launch("compact_batched", "compact", "repro_compact_batched",
+    _build.launch("compact_batched", "repro_compact_batched",
                   masks.device, masks, idx, counts,
                   _scratch(s, n, masks.device), s, n)
     return idx, counts
@@ -63,7 +63,7 @@ def _mask_scan(mask: torch.Tensor, ids: bool, counter: str):
                 torch.zeros((), dtype=torch.int32, device=dev))
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     count = torch.empty((1,), dtype=torch.int32, device=dev)
-    _build.launch(counter, "compact", "repro_mask_scan", dev, mask, out,
+    _build.launch(counter, "repro_mask_scan", dev, mask, out,
                   count, _scratch(1, n, dev), n, int(ids))
     return out, count[0]
 

@@ -98,7 +98,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     elif any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the tensor-core kernel's copies (TMA) need "
                          "16-byte aligned q, k and v")
-    _build.launch("flash_attention", "flash_attention", _ENTRIES[kernel],
+    _build.launch("flash_attention", _ENTRIES[kernel],
                   q.device, q, k, v, out, b, hq, hkv, sq, skv, d, *opts,
                   scale_v, float(softcap or 0.0))
     return out

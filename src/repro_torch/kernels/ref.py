@@ -129,11 +129,12 @@ def compact_batched_ref(masks: torch.Tensor):
 def segment_agg_ref(group_ids: torch.Tensor, values: torch.Tensor,
                     num_groups: int):
     """Per-group (count int32, sum float64, sumsq float64) over
-    ``group_ids`` [N] int32 (rows with ids < 0 are masked out).  Sums
+    ``group_ids`` [N] int32; rows whose id is < 0 or >= ``num_groups`` are
+    dropped, as by the JAX package's kernel and ``segment_sum``.  Sums
     accumulate in float64 in row order on the CPU, bit-equal to the numpy
     oracle's ``bincount``."""
     dev = group_ids.device
-    keep = group_ids >= 0
+    keep = (group_ids >= 0) & (group_ids < num_groups)
     g = group_ids[keep].to(torch.int64)
     v = values[keep].to(torch.float64)
     cnt = torch.zeros(num_groups, dtype=torch.int32, device=dev)

@@ -75,7 +75,7 @@ def _launch(counter: str, entry: str, pts, rows, cov, num_docs: int,
     count = torch.empty(table if mode == 2 else (0,), dtype=torch.int32,
                         device=dev)
     dims = (*lead, p, c, r, num_docs)          # (Q,) S, P, C, R, D
-    _build.launch(counter, "refine", entry, dev, pts, rows, cov, *dims,
+    _build.launch(counter, entry, dev, pts, rows, cov, *dims,
                   mode, bits, first, last, count)
     mask = bits == (1 << c) - 1
     if mode == 0:

@@ -48,6 +48,6 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor, h0=None):
     if length == 0:
         h_final.copy_(h0 if h0 is not None else torch.zeros_like(h_final))
         return h, h_final
-    _build.launch("ssm_scan", "ssm_scan", "repro_ssm_scan", a.device, a, bx,
+    _build.launch("ssm_scan", "repro_ssm_scan", a.device, a, bx,
                   h0, h, h_final, bsz, length, d)
     return h, h_final

@@ -175,6 +175,131 @@ def test_kernel_matches_plain_version(card, kernel):
     assert sum(_build.kernel_launches().values()) > before
 
 
+def _seg_ids(rng, case):
+    """(group ids, G) for one segment_agg case: both branches at their
+    threshold, the edge cases, and the smoke run's wave and large shapes
+    (rows, groups, selected share) on each branch."""
+    shapes = {"wave_shared": (19_200, 56, .0075),
+              "large_shared": (864_000, 56, .0075),
+              "wave_global": (160_000, 77_888, .0049),
+              "large_global": (7_200_000, 3_504_960, .0049)}
+    if case in shapes:
+        n, g, share = shapes[case]
+        ids = np.where(rng.random(n) < share, rng.integers(0, g, n), -1)
+        return ids, g
+    g = {"g2048": 2048, "g2049": 2049}.get(case, 300)
+    n = {"empty": 0, "unaligned": 50_001}.get(case, 50_000)
+    if case == "all_masked":
+        return np.full(n, -1), g
+    if case == "past_g":                 # masked, in range and past G
+        return rng.integers(-3, 2 * g, n), g
+    if case == "one_group":              # every row in group 7
+        return np.full(n, 7), g
+    return rng.integers(-1, g, n), g
+
+
+SEG_CASES = ["g2048", "g2049", "empty", "all_masked", "past_g", "one_group",
+             "unaligned", "wave_shared", "large_shared", "wave_global",
+             "large_global"]
+
+
+@pytest.mark.parametrize("case", SEG_CASES)
+def test_segment_agg_kernel_cases(card, case):
+    """Both branches: counts exact, sums within 1e-12 of the group's Σ|v|
+    (Σv² for the squares) of the plain version's row-order float64 sums;
+    one launch a call with rows and groups, none without."""
+    rng = np.random.default_rng(SEG_CASES.index(case))
+    ids, g = _seg_ids(rng, case)
+    gid = torch.from_numpy(ids.astype(np.int32)).to(card)
+    vals = torch.from_numpy(rng.uniform(-50.0, 130.0, ids.size)
+                            .astype(np.float32)).to(card)
+    if case == "unaligned":              # ids off a 16-byte boundary
+        gid, vals = gid[1:], vals[1:]
+    want = ref.segment_agg_ref(gid, vals, g)
+    scales = ref.segment_agg_ref(gid, vals.abs(), g)[1:]
+    before = _build.kernel_launches().get("segment_agg", 0)
+    got = segment_agg.segment_agg(gid, vals, g)
+    torch.cuda.synchronize()
+    assert _build.kernel_launches().get("segment_agg", 0) == \
+        before + int(gid.numel() > 0)
+    assert got[0].dtype == torch.int32 and torch.equal(got[0], want[0])
+    for a, b, scale in zip(got[1:], want[1:], scales):
+        assert a.dtype == torch.float64 and a.shape == (g,)
+        assert bool(((a - b).abs() <= 1e-12 * scale).all())
+    if case == "one_group":
+        assert int(got[0][7]) == ids.size and int(got[0].sum()) == ids.size
+
+
+@pytest.mark.parametrize("case", ["g2048", "past_g", "one_group",
+                                  "wave_shared", "large_shared"])
+def test_segment_agg_shared_branch_bit_identical(card, case):
+    """The shared branch adds in a fixed order: two calls give the same
+    bits (float64 atomics would not)."""
+    rng = np.random.default_rng(100 + SEG_CASES.index(case))
+    ids, g = _seg_ids(rng, case)
+    assert g <= segment_agg.SHARED_MAX_GROUPS
+    gid = torch.from_numpy(ids.astype(np.int32)).to(card)
+    vals = torch.from_numpy(rng.normal(0.0, 1e3, ids.size)
+                            .astype(np.float32)).to(card)
+    first = segment_agg.segment_agg(gid, vals, g)
+    second = segment_agg.segment_agg(gid, vals, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _wrapper_calls(card):
+    """One call of every kernel wrapper on small card inputs, by the
+    counter it must bump."""
+    rng = np.random.default_rng(11)
+    words = _words(rng.integers(0, 1 << 32, (3, 2, 70), dtype=np.uint64)
+                   .astype(np.uint32), card)
+    mask = torch.from_numpy(rng.random(5000) < .3).to(card)
+    gid = torch.from_numpy(rng.integers(-1, 40, 3000).astype(np.int32)) \
+        .to(card)
+    vals = torch.rand(3000, device=card)
+    pts, rows, cov, cons = _refine_inputs(rng, [40, 20], card, (30, 30))
+    cov_multi = _words(pack_constraints_multi([cons[:1], cons]), card)
+    q = torch.randn((1, 4, 64, 64), device=card).to(torch.bfloat16)
+    a = torch.rand((1, 16, 32), device=card)
+    return {
+        "bitmap_intersect_batched": lambda: bitset.bitmap_intersect_batched(
+            words),
+        "bitmap_intersect": lambda: bitset.bitmap_intersect(words[0]),
+        "bitset_binary": lambda: bitset.bitset_binary(words[0, 0],
+                                                      words[1, 0]),
+        "compact_batched": lambda: compact.compact_batched(mask[None]),
+        "compact": lambda: compact.compact(mask),
+        "mask_prefix_sum": lambda: compact.mask_prefix_sum(mask),
+        "segment_agg": lambda: segment_agg.segment_agg(gid, vals, 40),
+        "segment_agg[global]": lambda: segment_agg.segment_agg(gid, vals,
+                                                               5000),
+        "refine_tracks_batched": lambda: refine.refine_tracks_batched(
+            pts, rows, cov, 40),
+        "refine_tracks_multi": lambda: refine.refine_tracks_multi(
+            pts, rows, cov_multi, 40),
+        "refine_tracks": lambda: refine.refine_tracks(pts[0], rows[0], cov,
+                                                      40),
+        "flash_attention": lambda: fa.flash_attention(q, q, q),
+        "ssm_scan": lambda: ssm.ssm_scan(a, a),
+    }
+
+
+def test_launch_counter_equals_wrapper_calls(card):
+    """Every wrapper adds one to its own kernel counter a call and touches
+    no other counter."""
+    for name, call in _wrapper_calls(card).items():
+        counter = name.split("[")[0]
+        before = _build.kernel_launches()
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        after = _build.kernel_launches()
+        grew = {k: n - before.get(k, 0) for k, n in after.items()
+                if n != before.get(k, 0)}
+        assert grew == {counter: 3}, name
+
+
 @pytest.mark.parametrize("kind", ["none", "all", "random"])
 @pytest.mark.parametrize("s", [1, 3, 128])
 @pytest.mark.parametrize("n", [4095, 4096, 4097, 12289])

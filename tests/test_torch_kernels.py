@@ -9,6 +9,9 @@ in float32 on the MXU's one-hot formulation, the port in float64).
 The CUDA kernels themselves are held to these plain versions on the card
 by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -32,8 +35,8 @@ from repro.kernels import ref as jref                 # noqa: E402
 from repro.kernels import refine as jrefine           # noqa: E402
 from repro.kernels import segment_agg as jseg         # noqa: E402
 
-from repro_torch.kernels import (bitset, compact, fused, ops,  # noqa: E402
-                                 ref, refine, segment_agg)
+from repro_torch.kernels import (_build, bitset, compact,  # noqa: E402
+                                 fused, ops, ref, refine, segment_agg)
 
 
 def _x64():
@@ -194,6 +197,123 @@ def test_segment_agg_float64_bit_equal():
     assert np.array_equal(cnt.numpy(), rc.astype(np.int64))
     assert np.array_equal(s.numpy(), rs)
     assert np.array_equal(s2.numpy(), rs2)
+
+
+_PAST_G_MIXES = {
+    # the JAX package's example: ids 5 and 7 lie past G = 3
+    "example": lambda rng, n, g: np.array([0, 1, 5, -1, 2, 7, 1]),
+    "past_only": lambda rng, n, g: rng.integers(0, 2 * g + 3, n),
+    "masked_and_past": lambda rng, n, g: rng.integers(-3, 3 * g, n),
+    "all_out": lambda rng, n, g: np.where(rng.random(n) < .5, -1,
+                                          g + rng.integers(0, 9, n)),
+}
+
+
+@pytest.mark.parametrize("mix,g", [("example", 3)] + [
+    (mix, g) for mix in sorted(_PAST_G_MIXES) if mix != "example"
+    for g in (1, 3, 40)])
+def test_segment_agg_drops_ids_past_num_groups(mix, g):
+    """Rows whose id is >= num_groups are dropped, like masked (< 0) rows,
+    by the Pallas kernel (interpret), the JAX reference and the port."""
+    rng = np.random.default_rng(len(mix) * 100 + g)
+    gid = _PAST_G_MIXES[mix](rng, 500, g).astype(np.int32)
+    vals = rng.uniform(1.0, 100.0, gid.size).astype(np.float32)
+    cnt, s, s2 = segment_agg.segment_agg(torch.from_numpy(gid),
+                                         torch.from_numpy(vals), g)
+    keep = (gid >= 0) & (gid < g)
+    want = np.bincount(gid[keep], minlength=g)
+    assert cnt.shape == (g,) and np.array_equal(cnt.numpy(), want)
+    if mix == "example":
+        assert cnt.tolist() == [1, 2, 1]
+    np.testing.assert_array_equal(
+        s.numpy(), np.bincount(gid[keep], vals[keep].astype(np.float64), g))
+    jc, js, js2 = jseg.segment_agg(jnp.asarray(gid), jnp.asarray(vals), g,
+                                   interpret=True)
+    rc, rs, rs2 = jref.segment_agg_ref(jnp.asarray(gid), jnp.asarray(vals),
+                                       g)
+    for jcnt, jsum, jsq in ((jc, js, js2), (rc, rs, rs2)):
+        assert np.array_equal(cnt.numpy(),
+                              np.rint(np.asarray(jcnt)).astype(int))
+        np.testing.assert_allclose(s.numpy(), np.asarray(jsum), rtol=1e-6)
+        np.testing.assert_allclose(s2.numpy(), np.asarray(jsq), rtol=1e-6)
+
+
+@pytest.mark.parametrize("slabs", [1, 20])
+@pytest.mark.parametrize("g", [0, 1, 2, 3, 56, 2048, 2049, 77_888])
+def test_segment_agg_output_buffer_carving(g, slabs):
+    """The kernels' one output buffer: count [G] int32, sum and sumsq [G]
+    float64 as views of its first slab (the shared branch's scratch slabs
+    follow), the float64 planes 8-byte aligned, no two views sharing a
+    byte."""
+    cnt, s, s2 = segment_agg.alloc_outputs(g, "cpu", zero=True, slabs=slabs)
+    assert (cnt.shape, s.shape, s2.shape) == ((g,), (g,), (g,))
+    assert (cnt.dtype, s.dtype, s2.dtype) == (torch.int32, torch.float64,
+                                              torch.float64)
+    assert all(t.is_contiguous() for t in (cnt, s, s2))
+    base = s.untyped_storage().data_ptr()
+    assert cnt.untyped_storage().data_ptr() == s2.untyped_storage() \
+        .data_ptr() == base
+    slab = 8 * segment_agg.slab_doubles(g)
+    assert s.untyped_storage().nbytes() == slabs * slab
+    spans = sorted((t.data_ptr() - base, t.data_ptr() - base + t.nbytes)
+                   for t in (s, s2, cnt))
+    assert spans[0][0] == 0 and spans[-1][1] <= slab
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert s.data_ptr() % 8 == 0 and s2.data_ptr() % 8 == 0
+    assert cnt.data_ptr() % 4 == 0
+    assert s.data_ptr() == base          # the kernels' buffer pointer
+    assert not (cnt.any() or s.any() or s2.any())
+    if g:
+        cnt.fill_(-1)
+        s.fill_(1.5)
+        assert not s2.any() and bool((cnt == -1).all())
+
+
+@pytest.mark.parametrize("n,g", [(1, 1), (19_200, 56), (864_000, 56),
+                                 (50_000, 2048), (10**7, 2048)])
+def test_segment_agg_shared_blocks(n, g):
+    """Pass 1's grid: at least one block, no more than the rows need, and
+    the scratch (one slab a block) under its cap."""
+    blocks = segment_agg.shared_blocks(n, g)
+    slab_bytes = 8 * segment_agg.slab_doubles(g)
+    assert 1 <= blocks <= -(-n // segment_agg.ROWS_PER_BLOCK)
+    assert blocks <= segment_agg.MAX_BLOCKS
+    assert blocks * slab_bytes <= max(segment_agg.SCRATCH_BYTES, slab_bytes)
+
+
+_CSRC = Path(_build.__file__).resolve().parent / "csrc"
+_EXPORT = re.compile(r"REPRO_EXPORT\s+int\s+(\w+)\s*\(([^)]*)\)", re.S)
+
+
+def _c_kind(param: str) -> str:
+    """ctypes kind of one C parameter: pointer, int, 64-bit int, float."""
+    decl = " ".join(param.split())
+    if "*" in decl:
+        return "p"
+    if "long long" in decl or "int64_t" in decl:
+        return "l"
+    if decl.startswith(("float ", "const float ")):
+        return "f"
+    if decl.startswith(("int ", "const int ")):
+        return "i"
+    raise AssertionError(f"no ctypes kind for C parameter {param!r}")
+
+
+@pytest.mark.parametrize("lib", sorted(_build.SOURCES))
+def test_c_entry_points_match_ctypes_signatures(lib):
+    """Every REPRO_EXPORT entry point of ``csrc/<lib>.cu`` is in
+    ``_build.SOURCES[lib]`` with one ctypes kind for each C parameter, in
+    order; nothing is bound that the source does not export."""
+    src = (_CSRC / f"{lib}.cu").read_text()
+    exported = {name: "".join(_c_kind(p) for p in params.split(","))
+                for name, params in _EXPORT.findall(src)}
+    assert exported == _build.SOURCES[lib]
+
+
+def test_segment_agg_shared_max_groups_matches_kernel():
+    src = (_CSRC / "segment_agg.cu").read_text()
+    found = re.search(r"constexpr int kSharedMaxGroups = (\d+);", src)
+    assert found and int(found.group(1)) == segment_agg.SHARED_MAX_GROUPS
 
 
 # ------------------------------------------------------------------- refine
