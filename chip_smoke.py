@@ -45,15 +45,17 @@ around it: it imports nothing of the JAX package.  Phases:
    the prefill's logits over S tokens (the kernel path against the plain
    decode path);
 4. kernels: each kernel against its plain PyTorch version on the card, at
-   the largest shape the main path gave it (every refine output mode, both
-   segment_agg branches — the shared one must give the same bits from two
-   calls, and the library call is one ``index_add_`` of (1, v, v²) into
-   [G, 3], beside the sum-only one; compact_batched at the wave's and the
+   the largest shape the main path gave it (both segment_agg branches —
+   the shared one must give the same bits from two calls, and the library
+   call is one ``index_add_`` of (1, v, v²) into [G, 3]; each refine
+   wrapper in every output mode it ran in, at both shapes, two calls equal
+   bit for bit; compact_batched at the wave's and the
    serve phase's stacks; flash_attention at each LM configuration's bf16
    prefill, naming the kernel its dispatch ran — the tensor-core one at
    head dims 64 and 128) and at one larger shape, timed with CUDA events
    beside the plain version and a library call, and its wrapper's device
-   time per call from ``torch.profiler`` (``device_ms``);
+   time and device operations per call from ``torch.profiler``
+   (``device_ms``, ``device_ops``);
 4b. launch_path: µs a call of each step of a kernel launch through the
    entry table, of the ``bitset_binary`` and ``segment_agg`` wrappers and
    of ``torch.bitwise_and``, 10,000 calls a step, the median of 5 turns;
@@ -598,23 +600,36 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    def device_ms(fn, iters=20):
+    def device_ms(fn, iters=20, warmup=3):
         """Device time of one wrapper call (its kernels, memsets and small
-        tensor ops) from ``torch.profiler``; the CUDA-event time above
-        also counts the host's enqueue when the host is the slower side."""
+        tensor ops) from ``torch.profiler``, and the device operations a
+        call; the CUDA-event time above also counts the host's enqueue
+        when the host is the slower side.  The profiler loses some device
+        records (17 of 20 one-kernel calls were recorded when all 20 were
+        traced from its start, up to 3 in 20 after a warm-up), so
+        ``warmup`` traced calls are dropped by its schedule, and each
+        device operation counts at its mean recorded time times the
+        times a call runs it (its records over ``iters``, rounded);
+        ``device_ops`` is the records a call, losses included."""
         from torch.autograd import DeviceType
         fn()
         torch.cuda.synchronize()
         with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(
+                    wait=0, warmup=warmup, active=iters, repeat=1)) as prof:
+            for i in range(warmup + iters):
                 fn()
-            torch.cuda.synchronize()
+                if i == warmup + iters - 1:
+                    torch.cuda.synchronize()
+                prof.step()
         dev = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         if not dev:
-            return "not measured"
-        return sum(e.self_device_time_total for e in dev) / 1e3 / iters
+            return "not measured", "not measured"
+        per_call = sum(e.self_device_time_total / e.count
+                       * max(1, round(e.count / iters)) for e in dev)
+        return per_call / 1e3, sum(e.count for e in dev) / iters
 
     def bound(nbytes, nops, ops_per_s=SCALAR_OPS_PER_S):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
@@ -640,8 +655,9 @@ def main() -> int:
                 ops_per_s=SCALAR_OPS_PER_S):
         err = compare(run_kernel(), run_plain())
         b_ms, b_by = bound(nbytes, nops, ops_per_s)
+        dev_ms, dev_ops = device_ms(run_kernel)
         return {"max_abs_err": err, "ms": cuda_ms(run_kernel, iters),
-                "device_ms": device_ms(run_kernel),
+                "device_ms": dev_ms, "device_ops": dev_ops,
                 "plain_ms": cuda_ms(run_plain, plain_iters),
                 "library_ms": (cuda_ms(run_library, iters)
                                if run_library else None),
@@ -663,16 +679,15 @@ def main() -> int:
                 s * n + 4 * s * n + 4 * s, s * n)
 
     def segment_case(gid, vals, groups):
-        """The case tuple for :func:`measure`, the selected share and a
-        sum-only ``index_add_`` (a third of the function, printed beside
-        the fair call to compare with earlier runs).  The bound counts
-        every group id, the values of selected rows only (the kernel loads
-        no value of a masked row, and the function needs none) and the
-        three [G] outputs; operations are a compare per row and a convert,
-        a multiply and three adds per selected row.  The library call computes the same function: one
-        ``index_add_`` of the selected rows' (1, v, v²) into [G, 3]."""
+        """The case tuple for :func:`measure` and the selected share.  The
+        bound counts every group id, the values of selected rows only (the
+        kernel loads no value of a masked row, and the function needs none)
+        and the three [G] outputs; operations are a compare per row and a
+        convert, a multiply and three adds per selected row.  The library
+        call computes the same function: one ``index_add_`` of the
+        selected rows' (1, v, v²) into [G, 3]."""
         n = gid.numel()
-        # the yardsticks add the selected rows only, as the kernel does
+        # the yardstick adds the selected rows only, as the kernel does
         # (masked rows folded into one slot would serialise on it)
         keep = (gid >= 0) & (gid < groups)
         selected = int(keep.sum())
@@ -694,18 +709,13 @@ def main() -> int:
                 err = max(err, float(d.max()) if d.numel() else 0.0)
             return err
 
-        def sum_only():
-            return torch.zeros(groups, dtype=torch.float64,
-                               device=gid.device).index_add_(0, lib_idx,
-                                                             lib_vals)
-
         return ((lambda: segment_agg.segment_agg(gid, vals, groups),
                  lambda: ref.segment_agg_ref(gid, vals, groups),
                  lambda: torch.zeros((groups, 3), dtype=torch.float64,
                                      device=gid.device).index_add_(
                                          0, lib_idx, lib_cols),
                  compare, 4 * n + 4 * selected + 20 * groups,
-                 n + 5 * selected), selected / max(n, 1), sum_only)
+                 n + 5 * selected), selected / max(n, 1))
 
     def refine_case(args, kw):
         pts, rows, cov, docs = args
@@ -788,26 +798,57 @@ def main() -> int:
                 (lambda: torch.bitwise_and(a, b)) if op == "and" else None,
                 lambda g, w_: exact("bitset_binary", g, w_), 12 * w, w)
 
+    refine_cases = {"refine_tracks_batched": refine_case,
+                    "refine_tracks_multi": refine_multi_case,
+                    "refine_tracks": refine_one_case}
+
+    def refine_entry(name):
+        """Every output mode a refine wrapper ran in on the main path, at
+        its largest main-path input (``wave``) and with each shard's points
+        tiled to ~LARGE_POINTS (``large``): exact against the plain
+        version, two calls equal bit for bit, timed.  Returns {mode: {size:
+        measure row with its shape}}."""
+        make = refine_cases[name]
+        per_mode = {}
+        for mode in sorted(k[1] for k in captured
+                           if isinstance(k, tuple) and k[0] == name):
+            _, args, kw = captured[(name, mode)]
+            if name == "refine_tracks_multi":
+                q, p_m = args[2].shape[0], args[0].shape[2]
+                n, iters = max(1, round(LARGE_POINTS / (p_m * q))), \
+                    ((20, 1), (5, 1))
+            else:
+                n, iters = reps, ((50, 3), (10, 1))
+            row = {}
+            for size, (a_, k_), it in (("wave", (args, kw), iters[0]),
+                                       ("large", large_refine(args, kw, n),
+                                        iters[1])):
+                case = make(a_, k_)
+                exact(f"{name} mode {mode} {size}, two calls", case[0](),
+                      case[0]())
+                row[size] = {"shape": ([list(a_[0].shape), list(a_[2].shape)]
+                                       if name == "refine_tracks_multi"
+                                       else list(a_[0].shape)),
+                             **measure(name, *case, *it)}
+            per_mode[mode] = row
+            print(f"kernel {name}[mode {mode}]: " + "; ".join(
+                f"{size} {m['shape']} {m['ms']:.4f} ms, device "
+                f"{m['device_ms']} ({m['device_ops']} ops a call; bound "
+                f"{m['bound_ms']:.5f}, plain {m['plain_ms']:.3f})"
+                for size, m in row.items()))
+        return per_mode
+
     results = []
     for name, (src, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": totals[name]}
-        if name == "refine_tracks_batched":
-            modes = sorted(k[1] for k in captured
-                           if isinstance(k, tuple) and k[0] == name)
-            for mode in modes:            # every output mode, exact
-                _, args, kw = captured[(name, mode)]
-                case = refine_case(args, kw)
-                case[3](case[0](), case[1]())
-                largs, lkw = large_refine(args, kw)
-                lcase = refine_case(largs, lkw)
-                lcase[3](lcase[0](), lcase[1]())
-            _, args, kw = captured[(name, 0)]
-            wave = measure(name, *refine_case(args, kw), 50, 3)
-            largs, lkw = large_refine(args, kw)
-            large = measure(name, *refine_case(largs, lkw), 10, 1)
-            shape, lshape = list(args[0].shape), list(largs[0].shape)
-            entry["modes_checked"] = modes
+        if name in REFINES:
+            per_mode = refine_entry(name)
+            top = per_mode[min(per_mode)]
+            wave, large = dict(top["wave"]), dict(top["large"])
+            shape, lshape = wave.pop("shape"), large.pop("shape")
+            entry.update(modes_checked=sorted(per_mode), bit_identical=True,
+                         modes={str(m): r for m, r in per_mode.items()})
         elif name == "bitmap_intersect_batched":
             stack = captured[name][1][0]
             wave = measure(name, *bitset_case(stack), 200, 20)
@@ -827,35 +868,6 @@ def main() -> int:
             entry["serve"] = {"shape": list(served.shape),
                               **measure(name, *compact_case(served), 200,
                                         20)}
-        elif name == "refine_tracks_multi":
-            modes = sorted(k[1] for k in captured
-                           if isinstance(k, tuple) and k[0] == name)
-            for mode in modes:            # every output mode, exact
-                _, args, kw = captured[(name, mode)]
-                case = refine_multi_case(args, kw)
-                case[3](case[0](), case[1]())
-            _, args, kw = captured[(name, 0)]
-            q, p_m = args[2].shape[0], args[0].shape[2]
-            reps_m = max(1, round(LARGE_POINTS / (p_m * q)))
-            wave = measure(name, *refine_multi_case(args, kw), 20, 1)
-            largs, lkw = large_refine(args, kw, reps_m)
-            large = measure(name, *refine_multi_case(largs, lkw), 5, 1)
-            shape = [list(args[0].shape), list(args[2].shape)]
-            lshape = [list(largs[0].shape), list(largs[2].shape)]
-            entry["modes_checked"] = modes
-        elif name == "refine_tracks":
-            modes = sorted(k[1] for k in captured
-                           if isinstance(k, tuple) and k[0] == name)
-            for mode in modes:
-                _, args, kw = captured[(name, mode)]
-                case = refine_one_case(args, kw)
-                case[3](case[0](), case[1]())
-            _, args, kw = captured[(name, modes[0])]
-            wave = measure(name, *refine_one_case(args, kw), 50, 3)
-            largs, lkw = large_refine(args, kw, reps)
-            large = measure(name, *refine_one_case(largs, lkw), 10, 1)
-            shape, lshape = list(args[0].shape), list(largs[0].shape)
-            entry["modes_checked"] = modes
         elif name == "bitmap_intersect":
             stack = captured[name][1][0]
             wave = measure(name, *intersect_case(stack), 200, 20)
@@ -933,8 +945,7 @@ def main() -> int:
                                                           "andnot"])
         else:
             entry.update(segment_entry(torch, captured, reps, measure,
-                                       segment_case, cuda_ms,
-                                       seg_branch_launches))
+                                       segment_case, seg_branch_launches))
             wave, large = entry.pop("wave"), entry.pop("large")
             shape, lshape = entry.pop("shape"), large.pop("shape")
         entry.update(wave)
@@ -957,12 +968,12 @@ def main() -> int:
     return 0
 
 
-def segment_entry(torch, captured, reps, measure, segment_case, cuda_ms,
+def segment_entry(torch, captured, reps, measure, segment_case,
                   branch_launches):
     """Phase 4 for segment_agg: each branch at its largest main-path input
     and at a larger shape (the global branch's group space grows with its
     rows, the shared branch's stays), held to the plain version and timed
-    beside the library call and the sum-only ``index_add_``.  The shared
+    beside the library call.  The shared
     branch must give the same bits from two calls.  Returns the
     kernels-line entry's keys: the top-level numbers are the global
     branch's (Q1's wave, the largest)."""
@@ -982,10 +993,9 @@ def segment_entry(torch, captured, reps, measure, segment_case, cuda_ms,
         for size, args, iters in (("wave", (gid, vals, groups), (200, 20)),
                                   ("large", (big_gid, big_vals, big_groups),
                                    (50, 5))):
-            case, share, sum_only = segment_case(*args)
+            case, share = segment_case(*args)
             m = measure("segment_agg", *case, *iters)
-            m.update(shape=[args[0].numel(), args[2]], selected_share=share,
-                     library_sum_only_ms=cuda_ms(sum_only, iters[0]))
+            m.update(shape=[args[0].numel(), args[2]], selected_share=share)
             if branch == "shared":
                 first, second = case[0](), case[0]()
                 if not all(torch.equal(x, y) for x, y in zip(first, second)):
@@ -998,8 +1008,7 @@ def segment_entry(torch, captured, reps, measure, segment_case, cuda_ms,
             f"{size} {m['shape']} selected {m['selected_share']:.4f} "
             f"{m['ms']:.4f} ms, device {m['device_ms']} (bound "
             f"{m['bound_ms']:.6f}, plain {m['plain_ms']:.3f}, index_add_ "
-            f"[G,3] {m['library_ms']:.4f}, sum-only "
-            f"{m['library_sum_only_ms']:.4f})"
+            f"[G,3] {m['library_ms']:.4f})"
             for size, m in row.items() if size != "launches"))
     top = branches["global"]
     keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",

@@ -42,8 +42,8 @@ from typing import Callable, Dict
 import torch
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_LOGS", "BUILD_DIR", "library",
-           "build_all", "require", "launch", "kernel_launches",
-           "reset_kernel_launches"]
+           "build_all", "require", "forbid_grad", "launch",
+           "kernel_launches", "reset_kernel_launches"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -60,8 +60,7 @@ SOURCES: Dict[str, Dict[str, str]] = {
                 "repro_mask_scan": "ppppiip"},
     "segment_agg": {"repro_segment_agg_shared": "ppiipip",
                     "repro_segment_agg_global": "ppiipp"},
-    "refine": {"repro_refine_tracks_batched": "pppiiiiiippppp",
-               "repro_refine_tracks_multi": "pppiiiiiiippppp"},
+    "refine": {"repro_refine_tracks": "pppiiiiiiiplpl" + "p" * 10},
     "flash_attention": {"repro_flash_attention_simt": "ppppiiiiiiiiiffp",
                         "repro_flash_attention_tc": "ppppiiiiiiiiffp"},
     "ssm_scan": {"repro_ssm_scan": "pppppiilp"},
@@ -175,6 +174,21 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
                              "tensor")
     elif not t.is_cpu:
         raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def forbid_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would have to differentiate through the CUDA
+    kernel ``kernel``: grad mode is on and an input requires grad.  The
+    kernels write their outputs through raw pointers and have no backward,
+    so without this check the result would silently carry no gradient.
+    ``None`` inputs are skipped."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an input "
+            "requires grad; run it under torch.no_grad() or "
+            "torch.inference_mode(), or on CPU tensors (the plain version "
+            "differentiates)")
 
 
 def launch(counter: str, entry: str, device: torch.device, *args) -> None:

@@ -10,7 +10,9 @@ and bfloat16 at head dims 16, 32 and 256 on the SIMT kernel
 (``repro_flash_attention_simt``: fp32 products).  Either counts as one
 ``flash_attention`` launch.  CPU tensors run the plain version
 (``ref.flash_attention_ref``).  All accumulate in float32 and return q's
-dtype.
+dtype.  The kernels have no backward: on CUDA tensors the wrapper raises
+when grad mode is on and an input requires grad (the plain version
+differentiates).
 
 Tolerance: the kernels sum in another order than the plain version and
 take their exponentials per 64-key tile (online softmax), so outputs
@@ -75,6 +77,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _ref.flash_attention_ref(q, k, v, causal=causal,
                                         window=window, softcap=softcap,
                                         scale=scale)
+    _build.forbid_grad("flash_attention", q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got "
                          f"{q.dtype}")

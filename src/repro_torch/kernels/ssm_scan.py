@@ -6,7 +6,9 @@ TPU kernel ``repro/kernels/ssm_scan.py`` ``ssm_scan``, with the optional
 starting state ``h0`` of ``repro/kernels/ref.py``'s ``ssm_scan_ref`` (the
 Mamba layer carries its state across chunks through it).  CUDA tensors
 launch the kernel (float32); CPU tensors run the plain version
-(``ref.ssm_scan_ref``).
+(``ref.ssm_scan_ref``).  The kernel has no backward: on CUDA tensors the
+wrapper raises when grad mode is on and an input requires grad (the plain
+version differentiates).
 
 Tolerance: kernel and plain version take the same steps in the same
 order, so they differ only where the compiler fuses a multiply-add
@@ -37,6 +39,7 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor, h0=None):
         raise ValueError("a, bx and h0 lie on different devices")
     if a.device.type == "cpu":
         return _ref.ssm_scan_ref(a, bx, h0)
+    _build.forbid_grad("ssm_scan", a, bx, h0)
     _build.require(a, "a", torch.float32, 3)
     _build.require(bx, "bx", torch.float32, 3)
     if h0 is not None:

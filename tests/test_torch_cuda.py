@@ -19,7 +19,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.data.synthetic import city_region, generate_world  # noqa
 from repro_torch.exec import (Catalog, ExecConfig, NumpyBackend,  # noqa
                               TorchBackend)
-from repro_torch.exec.refine import (pack_constraints,  # noqa: E402
+from repro_torch.exec.refine import (f64_sort_key,  # noqa: E402
+                                     pack_constraints,
                                      pack_constraints_multi,
                                      pack_track_points)
 from repro_torch.fdb import build_fdb                 # noqa: E402
@@ -246,6 +247,163 @@ def test_segment_agg_shared_branch_bit_identical(card, case):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def _edge_constraints(rng, n_c, n_ranges):
+    """``n_c`` constraints of ``n_ranges`` sorted, disjoint, non-touching
+    key ranges in [0, 2^60) and a time window each."""
+    cons = []
+    for _ in range(n_c):
+        cuts = np.unique(rng.integers(0, 1 << 40, 3 * n_ranges + 8))
+        cuts = cuts[:2 * n_ranges].astype(np.uint64) << np.uint64(20)
+        tree = AreaTree.from_ranges(cuts[0::2], cuts[1::2])
+        assert tree.lo.size == n_ranges
+        t0 = float(rng.uniform(0.0, 4e5))
+        cons.append((tree, t0, t0 + float(rng.uniform(1e5, 4e5))))
+    return cons
+
+
+def _edge_points(rng, cons, shard_points, p):
+    """Shards of docs (runs of 1-70 points, -1 padding after
+    ``shard_points[s]`` points, so docs straddle the kernel's 8-point,
+    256-point and 2048-point edges) whose keys sit exactly at range los,
+    at his (the first key past a range), one below each, in gaps, or
+    repeat the point before (a track that stays in one range), and whose
+    times sit exactly at, just outside and inside the windows."""
+    los = np.concatenate([c[0].lo for c in cons])
+    his = np.concatenate([c[0].hi for c in cons])
+    pool = np.concatenate([los, his, his - np.uint64(1), los - np.uint64(1),
+                           los // np.uint64(2) + his // np.uint64(2),
+                           rng.integers(0, 1 << 60, los.size)
+                           .astype(np.uint64)])
+    w = np.array([[t0, t1] for _, t0, t1 in cons]).ravel()
+    tpool = np.concatenate([w, np.nextafter(w, -np.inf),
+                            np.nextafter(w, np.inf),
+                            rng.uniform(-1e5, 9e5, w.size)])
+    pts = np.zeros((len(shard_points), 4, p), np.uint32)
+    rows = np.full((len(shard_points), p), -1, np.int32)
+    for s, n in enumerate(shard_points):
+        lens = rng.integers(1, 71, n)
+        doc = np.repeat(np.arange(n), lens)[:n]
+        keys = rng.choice(pool, n)
+        stay = rng.random(n) < 0.5
+        for i in np.flatnonzero(stay[1:]) + 1:
+            keys[i] = keys[i - 1]
+        t = f64_sort_key(rng.choice(tpool, n))
+        for j, v in enumerate((keys, t)):
+            pts[s, 2 * j, :n] = (v >> np.uint64(32)).astype(np.uint32)
+            pts[s, 2 * j + 1, :n] = (v & np.uint64(0xFFFFFFFF)).astype(
+                np.uint32)
+        rows[s, :n] = doc
+    return pts, rows
+
+
+#: name → (constraints, ranges each); R is pack_constraints' padding of
+#: the ranges to a multiple of 128 (R = 1: the table's first slot only);
+#: the kernel queues constraints two at a time, so C = 1 and 3 leave a
+#: lone one
+REFINE_EDGE_CASES = {"r1_c1": (1, 1), "r896_c2": (2, 896),
+                     "r256_c3": (3, 200), "r128_c30": (30, 100),
+                     "global_c2": (2, 8000)}
+_REFINE_MODES = ({}, {"with_first_hits": True}, {"with_analytics": True})
+
+
+def _same(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", list(REFINE_EDGE_CASES))
+def test_refine_kernel_edge_cases(card, case):
+    """The three refine wrappers against their plain versions, exact in
+    every output mode, and two calls equal bit for bit: keys at a range's
+    lo, at its hi and in gaps, times at a window's ends, docs straddling
+    the kernel's tiles, an all-padding shard, multi tables padded by
+    ``pack_constraints_multi`` (pad constraints and pad slots; 3 queries
+    double-buffer the shared tables, 2 keep one each).  ``global_c2``'s
+    table is past shared memory, so it runs the global-memory route."""
+    n_c, n_r = REFINE_EDGE_CASES[case]
+    rng = np.random.default_rng(sorted(REFINE_EDGE_CASES).index(case))
+    cons = _edge_constraints(rng, n_c, n_r)
+    cov_np = pack_constraints(cons)
+    if n_r == 1:
+        cov_np = np.ascontiguousarray(cov_np[:, :, :1])
+    c, _, r = cov_np.shape
+    assert r == (1 if n_r == 1 else -(-n_r // 128) * 128)
+    if case == "global_c2":
+        assert 8 * refine._record_words(c, r) > 232448
+    pts_np, rows_np = _edge_points(rng, cons, [5000, 2100, 0], 5000)
+    assert rows_np[0, 255] == rows_np[0, 256] or \
+        rows_np[0, 2047] == rows_np[0, 2048]
+    keys = (pts_np[0, 0].astype(np.uint64) << np.uint64(32)) | pts_np[0, 1]
+    assert np.isin(keys, cons[0][0].lo).any()
+    assert np.isin(keys, cons[0][0].hi).any()
+    pts, rows = _words(pts_np, card), torch.from_numpy(rows_np).to(card)
+    cov = _words(cov_np, card)
+    docs = 200
+    small = _edge_constraints(rng, 1, 50)
+    tables = [_words(pack_constraints_multi(t), card)
+              for t in ([cons, small, cons[::-1]], [small, cons])]
+    calls = [(lambda kw: refine.refine_tracks_batched(pts, rows, cov, docs,
+                                                      **kw),
+              lambda kw: ref.refine_tracks_batched_ref(pts, rows, cov, docs,
+                                                       **kw))]
+    for s in (0, 2):                     # a shard, and the all-padding one
+        calls.append((
+            lambda kw, s=s: refine.refine_tracks(pts[s], rows[s], cov, docs,
+                                                 **kw),
+            lambda kw, s=s: (lambda o: tuple(x[0] for x in o)
+                             if isinstance(o, tuple) else o[0])(
+                ref.refine_tracks_batched_ref(pts[s:s + 1], rows[s:s + 1],
+                                              cov, docs, **kw))))
+    for tab in tables:
+        calls.append((
+            lambda kw, tab=tab: refine.refine_tracks_multi(pts, rows, tab,
+                                                           docs, **kw),
+            lambda kw, tab=tab: ref.refine_tracks_multi_ref(pts, rows, tab,
+                                                            docs, **kw)))
+    hits = 0
+    for kernel, plain in calls:
+        for kw in _REFINE_MODES:
+            first, second = kernel(kw), kernel(kw)
+            torch.cuda.synchronize()
+            want = plain(kw)
+            _same(first, want)
+            _same(second, first)
+            hits += int((want[0] if kw else want).sum())
+    assert hits > 0
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssm_scan"])
+def test_kernels_raise_under_grad(card, kernel):
+    """The CUDA kernels have no backward: under grad mode an input that
+    requires grad raises instead of silently cutting the gradient; without
+    grad mode, or without such an input, the kernel runs."""
+    if kernel == "flash_attention":
+        x = torch.randn((1, 2, 64, 64), device=card).to(torch.bfloat16)
+
+        def call(a):
+            return fa.flash_attention(a, x, x)
+    else:
+        x = torch.rand((1, 16, 32), device=card)
+
+        def call(a):
+            return ssm.ssm_scan(a, x)[0]
+    leaf = x.clone().requires_grad_(True)
+    before = _build.kernel_launches().get(kernel, 0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(leaf)
+    assert _build.kernel_launches().get(kernel, 0) == before
+    with torch.no_grad():
+        out = call(leaf)
+    torch.cuda.synchronize()
+    assert not out.requires_grad
+    call(x)
+    assert _build.kernel_launches()[kernel] == before + 2
 
 
 def _wrapper_calls(card):

@@ -463,6 +463,101 @@ def test_refine_rejects_bad_inputs():
             torch.zeros((1, 8, 128), dtype=torch.int32), 3)
 
 
+@pytest.mark.parametrize("lead,c,r,d,mode", [
+    ((1,), 1, 1, 1, 0), ((8,), 2, 896, 33, 0), ((3,), 30, 128, 7, 1),
+    ((16, 8), 2, 640, 31, 2), ((2, 1), 3, 8064, 5, 2), ((1,), 1, 1, 3, 2)])
+def test_refine_alloc_outputs_layout(lead, c, r, d, mode):
+    """The CUDA refine's one buffer: scratch and outputs are disjoint
+    slices of it, each contiguous, of the kernel's dtypes and shapes; the
+    tables' scratch holds one laid-out record a query."""
+    (tab, acc, first, last, bits), out = refine.alloc_outputs(
+        lead, c, r, d, mode, "cpu")
+    q = lead[0] if len(lead) == 2 else 1
+    n = int(np.prod(lead)) * d
+    assert tab.dtype == torch.int64 and tab.numel() == \
+        q * refine._record_words(c, r)
+    assert bits.dtype == torch.int32 and bits.numel() == n
+    assert (first is None) == (mode == 0) and (last is None) == (mode < 2)
+    # the accumulators that start at 0 are one slice: first, last, bits
+    # and the count
+    lo, hi = acc.data_ptr(), acc.data_ptr() + 8 * acc.numel()
+    for v in (first, last, bits, out[5] if mode == 2 else None):
+        if v is not None:
+            assert lo <= v.data_ptr() and \
+                v.data_ptr() + v.numel() * v.element_size() <= hi
+    want = [(torch.bool, (*lead, d))]
+    want += [(torch.int32, (*lead, c, d))] * (0, 2, 5)[mode]
+    assert [(o.dtype, tuple(o.shape)) for o in out] == want
+    views = [v for v in (tab, first, last, bits, *out[:5]) if v is not None]
+    base = tab.untyped_storage().data_ptr()
+    spans = []
+    for v in views:
+        assert v.is_contiguous()
+        assert v.untyped_storage().data_ptr() == base
+        start = v.data_ptr() - base
+        spans.append((start, start + v.numel() * v.element_size()))
+        assert spans[-1][1] <= tab.untyped_storage().nbytes()
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    # the 64-bit accumulators are 8-byte aligned, the int32 planes 4
+    for v in views:
+        assert (v.data_ptr() - base) % v.element_size() == 0
+
+
+def test_refine_record_words_matches_kernel():
+    """``_record_words`` sizes the scratch with the kernel's formula (the
+    launcher also checks the size it is given)."""
+    src = (_CSRC / "refine.cu").read_text()
+    assert "return 2 * ((R + 63) / 64);" in src
+    assert "return static_cast<size_t>(C) * (2 + fence_words(R) + 2 * R);" \
+        in src
+    for c, r in ((1, 1), (2, 63), (2, 64), (2, 65), (30, 896)):
+        assert refine._record_words(c, r) == c * (2 + 2 * ((r + 63) // 64)
+                                                  + 2 * r)
+
+
+@pytest.mark.parametrize("case", ["plain", "requires_grad", "no_grad",
+                                  "inference_mode", "none_skipped",
+                                  "detached"])
+def test_forbid_grad(case):
+    """The CUDA kernels have no backward: ``forbid_grad`` raises, naming
+    the kernel, exactly when grad mode is on and an input requires grad."""
+    x = torch.ones(3)
+    w = torch.ones(3, requires_grad=True)
+    args = {"plain": (x, x), "requires_grad": (x, w), "no_grad": (x, w),
+            "inference_mode": (x, w), "none_skipped": (x, None),
+            "detached": (w.detach(), x)}[case]
+    if case == "requires_grad":
+        with pytest.raises(RuntimeError, match="ssm_scan"):
+            _build.forbid_grad("ssm_scan", *args)
+    elif case == "no_grad":
+        with torch.no_grad():
+            _build.forbid_grad("ssm_scan", *args)
+    elif case == "inference_mode":
+        with torch.inference_mode():
+            _build.forbid_grad("ssm_scan", *args)
+    else:
+        _build.forbid_grad("ssm_scan", *args)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssm_scan"])
+def test_cpu_plain_versions_differentiate(kernel):
+    """On CPU tensors the wrappers run the plain versions, which carry
+    the gradient (the guard is the CUDA branch's only)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ssm
+    g = torch.Generator().manual_seed(0)
+    if kernel == "flash_attention":
+        q = torch.randn((1, 2, 8, 16), generator=g, requires_grad=True)
+        out = fa.flash_attention(q, q.detach(), q.detach())
+    else:
+        q = torch.rand((1, 8, 4), generator=g, requires_grad=True)
+        out = ssm.ssm_scan(q, torch.ones((1, 8, 4)))[0]
+    out.sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert bool(torch.isfinite(q.grad).all()) and bool((q.grad != 0).any())
+
+
 # ------------------------------------------------------ the fused stages
 
 def test_key64_orders_word_pairs_unsigned():
