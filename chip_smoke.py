@@ -55,7 +55,7 @@ around it: it imports nothing of the JAX package.  Phases:
    head dims 64 and 128) and at one larger shape, timed with CUDA events
    beside the plain version and a library call, and its wrapper's device
    time and device operations per call from ``torch.profiler``
-   (``device_ms``, ``device_ops``);
+   (``device_ms``, ``device_ops``, ``device_records``);
 4b. launch_path: µs a call of each step of a kernel launch through the
    entry table, of the ``bitset_binary`` and ``segment_agg`` wrappers and
    of ``torch.bitwise_and``, 10,000 calls a step, the median of 5 turns;
@@ -63,7 +63,9 @@ around it: it imports nothing of the JAX package.  Phases:
 5. profile: per warm query, the fused stages' times, the host functions
    (``cProfile``) and the device's busy share (``torch.profiler``); per
    serve batch, the host functions and the device's busy share of one
-   warm ``run_pending()``.
+   warm ``run_pending()``.  Here and in phase 3e the port's kernels count
+   against their launches in the window (the profiler loses records),
+   PyTorch's own device operations as recorded.
 
 Every main-path run sets the launch counters to 0 just before it and
 reads them just after; a kernel's ``launches`` is the sum over phases 3-3e.
@@ -91,6 +93,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -142,6 +145,23 @@ KERNELS = {
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:63"),
 }
+#: the port's device kernels, by their function names in csrc/*.cu, under
+#: the launch counters of the wrappers that run them: each counted launch
+#: runs one of its family's kernels outside FOLLOWERS, and each follower
+#: runs once after one of them (segment_agg's shared branch: partials,
+#: then combine)
+KERNEL_FAMILIES = {
+    ("bitmap_intersect_batched", "bitmap_intersect"): ("intersect_kernel",),
+    ("bitset_binary",): ("binary_kernel",),
+    ("compact_batched", "compact", "mask_prefix_sum"): ("mask_scan_kernel",),
+    ("segment_agg",): ("seg_partials_kernel", "seg_combine_kernel",
+                       "seg_global_kernel"),
+    ("refine_tracks_batched", "refine_tracks_multi", "refine_tracks"):
+        ("refine_kernel",),
+    ("flash_attention",): ("flash_simt_kernel", "flash_tc_kernel"),
+    ("ssm_scan",): ("ssm_scan_kernel",),
+}
+FOLLOWERS = {"seg_combine_kernel"}
 #: kernels no engine path launches (held and timed in phase 4 only)
 OFF_PATH = {"bitset_binary"}
 #: refine wrappers whose recorded inputs are kept per output mode
@@ -609,27 +629,37 @@ def main() -> int:
         traced from its start, up to 3 in 20 after a warm-up), so
         ``warmup`` traced calls are dropped by its schedule, and each
         device operation counts at its mean recorded time times the
-        times a call runs it (its records over ``iters``, rounded);
-        ``device_ops`` is the records a call, losses included."""
+        times a call runs it (its records over ``iters``, rounded, at
+        least once).  Returns that time, the device operations a call so
+        counted (``device_ops``) and the records a call, losses included
+        (``device_records``)."""
         from torch.autograd import DeviceType
         fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA],
-                schedule=torch.profiler.schedule(
-                    wait=0, warmup=warmup, active=iters, repeat=1)) as prof:
-            for i in range(warmup + iters):
-                fn()
-                if i == warmup + iters - 1:
-                    torch.cuda.synchronize()
-                prof.step()
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-        if not dev:
-            return "not measured", "not measured"
-        per_call = sum(e.self_device_time_total / e.count
-                       * max(1, round(e.count / iters)) for e in dev)
-        return per_call / 1e3, sum(e.count for e in dev) / iters
+        # now and then a window comes back with no device record at all:
+        # it is then taken again, up to three times
+        for _ in range(3):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA],
+                    schedule=torch.profiler.schedule(
+                        wait=0, warmup=warmup, active=iters,
+                        repeat=1)) as prof:
+                for i in range(warmup + iters):
+                    fn()
+                    if i == warmup + iters - 1:
+                        torch.cuda.synchronize()
+                    prof.step()
+            dev = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            if dev:
+                break
+        else:
+            return ("not measured",) * 3
+        runs = [max(1, round(e.count / iters)) for e in dev]
+        per_call = sum(e.self_device_time_total / e.count * n
+                       for e, n in zip(dev, runs))
+        return (per_call / 1e3, sum(runs),
+                sum(e.count for e in dev) / iters)
 
     def bound(nbytes, nops, ops_per_s=SCALAR_OPS_PER_S):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
@@ -655,9 +685,10 @@ def main() -> int:
                 ops_per_s=SCALAR_OPS_PER_S):
         err = compare(run_kernel(), run_plain())
         b_ms, b_by = bound(nbytes, nops, ops_per_s)
-        dev_ms, dev_ops = device_ms(run_kernel)
+        dev_ms, dev_ops, dev_records = device_ms(run_kernel)
         return {"max_abs_err": err, "ms": cuda_ms(run_kernel, iters),
                 "device_ms": dev_ms, "device_ops": dev_ops,
+                "device_records": dev_records,
                 "plain_ms": cuda_ms(run_plain, plain_iters),
                 "library_ms": (cuda_ms(run_library, iters)
                                if run_library else None),
@@ -1269,14 +1300,15 @@ def lm_phase(torch, np, totals):
         row["warm_tokens_per_s"] = len(prompts) * LM_MAX_NEW / (
             row["prefill_ms"] + (LM_MAX_NEW - 1) * row["decode_ms_per_step"]
         ) * 1e3
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
         srv.generate_batch(prompts, max_new=LM_MAX_NEW)
-        with torch.profiler.profile(activities=acts) as prof:
+
+        def warm_batch():
             t0 = time.perf_counter()
             srv.generate_batch(prompts, max_new=LM_MAX_NEW)
-            wall = sync_ms(t0)
-        row.update(profiled_wall_ms=wall, **_device_busy(torch, prof, wall))
+            return sync_ms(t0)
+
+        wall, busy = _profiled(torch, warm_batch)
+        row.update(profiled_wall_ms=wall, **busy)
 
         # the kernels' inputs on this path: one more prefill, recorded
         def recorder(key, fn):
@@ -1364,20 +1396,87 @@ def _own_and_self(rows, n_own=12, n_self=8):
              sorted(rows, key=lambda r: -r[1])[:n_self]})
 
 
-def _device_busy(torch, prof, wall_ms, top=6):
-    """Busy ms (sum of device self time), idle share and top entries of
-    a ``torch.profiler`` run, or "not measured" when it saw no device
-    time."""
+def _kernel_name(key: str):
+    """The function name of a kernel in a profiler key such as
+    ``void (anonymous namespace)::scan<true>(...)``, else None."""
+    found = re.search(r"::(\w+)\s*[<(]", key)
+    return found.group(1) if found else None
+
+
+def _device_busy(torch, prof, wall_ms, launches, top=6):
+    """Busy ms, idle share and top entries of a ``torch.profiler`` window,
+    or "not measured" when it saw no device time.
+
+    The profiler loses some device records (C5), so the port's kernels
+    are counted as ``device_ms`` counts them: each at its recorded time
+    scaled by its family's launches in the window (``launches``, the
+    wrappers' counters over the window) over the records of the family's
+    kernels that begin a launch.  PyTorch's own operations (copies,
+    matmuls, elementwise ops) have no counter: they add their recorded
+    sum as it is (``busy_ms_uncounted``).  ``kernel_records`` holds
+    each family's [records, launches]; ``device_busy_ms_raw`` the plain
+    sum of every record."""
     from torch.autograd import DeviceType
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if not dev:
+        return {"device_busy_ms": "not measured",
+                "device_idle_share": "not measured", "top_device_ms": {}}
+    family_of = {k: fam for fam, names in KERNEL_FAMILIES.items()
+                 for k in names}
+    fam_ms, fam_records = {}, {}
+    uncounted = 0.0
+    for e in dev:
+        name = _kernel_name(e.key)
+        ms = e.self_device_time_total / 1e3
+        fam = family_of.get(name)
+        if fam is None:
+            uncounted += ms
+            continue
+        fam_ms[fam] = fam_ms.get(fam, 0.0) + ms
+        if name not in FOLLOWERS:
+            fam_records[fam] = fam_records.get(fam, 0) + e.count
+    counted, records = 0.0, {}
+    for fam, ms in fam_ms.items():
+        n = sum(launches.get(c, 0) for c in fam)
+        r = fam_records.get(fam, 0)
+        counted += ms * (n / r if r and n else 1.0)
+        records["/".join(fam)] = [r, n]
+    for fam in KERNEL_FAMILIES:        # launched, but every record lost
+        n = sum(launches.get(c, 0) for c in fam)
+        if n and fam not in fam_ms:
+            records["/".join(fam)] = [0, n]
+    busy_ms = counted + uncounted
     entries = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
-    return {"device_busy_ms": busy_ms if dev else "not measured",
-            "device_idle_share": (1 - busy_ms / wall_ms) if dev
-            else "not measured",
+    return {"device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "busy_ms_uncounted": uncounted,
+            "device_busy_ms_raw": sum(e.self_device_time_total
+                                      for e in dev) / 1e3,
+            "kernel_records": records,
             "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
                               for e in entries}}
+
+
+def _profiled(torch, run):
+    """``run()`` (which returns its wall ms) under ``torch.profiler`` with
+    CPU and CUDA activities: (wall ms, :func:`_device_busy` of the
+    window).  A window that comes back with no device record at all is
+    taken again, up to three times."""
+    from repro_torch.kernels import _build
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        before = _build.kernel_launches()
+        with torch.profiler.profile(activities=acts) as prof:
+            wall_ms = run()
+        launches = {k: n - before.get(k, 0)
+                    for k, n in _build.kernel_launches().items()
+                    if n != before.get(k, 0)}
+        busy = _device_busy(torch, prof, wall_ms, launches)
+        if busy["device_busy_ms"] != "not measured":
+            break
+    return wall_ms, busy
 
 
 def profile_serve(torch, batches, backend, cat) -> None:
@@ -1387,8 +1486,6 @@ def profile_serve(torch, batches, backend, cat) -> None:
     import cProfile
     import pstats
     from repro_torch.serve import QueryServer
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     for bname, (_source, flows, _mode) in batches.items():
         srv = QueryServer(backend=backend, catalog=cat, cache=False,
                           start=False)
@@ -1407,13 +1504,11 @@ def profile_serve(torch, batches, backend, cat) -> None:
         host_ms = drain()
         host.disable()
         own, self_ms = _own_and_self(_host_rows(pstats.Stats(host).stats))
-        with torch.profiler.profile(activities=acts) as prof:
-            wall_ms = drain()
+        wall_ms, busy = _profiled(torch, drain)
         print("profile " + json.dumps({
             "serve_batch": bname, "cprofile_wall_ms": host_ms,
             "host_cum_ms": own, "host_self_ms": self_ms,
-            "profiled_wall_ms": wall_ms,
-            **_device_busy(torch, prof, wall_ms)}))
+            "profiled_wall_ms": wall_ms, **busy}))
 
 
 def profile_queries(torch, queries, sessions) -> None:
@@ -1461,16 +1556,12 @@ def profile_queries(torch, queries, sessions) -> None:
         host_ms = timed(seq, flow)
         host.disable()
         own, self_ms = _own_and_self(_host_rows(pstats.Stats(host).stats))
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            wall_ms = timed(warm, flow)
+        wall_ms, busy = _profiled(torch, lambda: timed(warm, flow))
         print("profile " + json.dumps({
             "query": qname, "sequential_staged_wall_ms": staged_ms,
             "stages_ms": stages, "sequential_cprofile_wall_ms": host_ms,
             "host_cum_ms": own, "host_self_ms": self_ms,
-            "profiled_wall_ms": wall_ms,
-            **_device_busy(torch, prof, wall_ms)}))
+            "profiled_wall_ms": wall_ms, **busy}))
 
 
 def launch_path_main(root: str) -> int:

@@ -43,7 +43,8 @@ import torch
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_LOGS", "BUILD_DIR", "library",
            "build_all", "require", "forbid_grad", "launch",
-           "kernel_launches", "reset_kernel_launches"]
+           "kernel_launches", "reset_kernel_launches", "StreamState",
+           "stream_state", "state_words"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -53,11 +54,10 @@ BUILD_DIR = _HERE / "build"
 #: (``p`` pointer or stream, ``i`` int, ``l`` 64-bit int, ``f`` float);
 #: every entry returns an int error
 SOURCES: Dict[str, Dict[str, str]] = {
-    "bitset": {"repro_bitmap_intersect_batched": "pppiiip",
-               "repro_bitmap_intersect": "pppiip",
+    "bitset": {"repro_bitmap_intersect": "pppiiipp",
                "repro_bitset_binary": "pppiip"},
-    "compact": {"repro_compact_batched": "ppppiip",
-                "repro_mask_scan": "ppppiip"},
+    "compact": {"repro_compact_batched": "ppppiillp",
+                "repro_mask_scan": "ppppiillp"},
     "segment_agg": {"repro_segment_agg_shared": "ppiipip",
                     "repro_segment_agg_global": "ppiipp"},
     "refine": {"repro_refine_tracks": "pppiiiiiiiplpl" + "p" * 10},
@@ -225,3 +225,49 @@ def kernel_launches() -> Dict[str, int]:
 def reset_kernel_launches() -> None:
     with _LAUNCH_LOCK:
         _LAUNCHES.clear()
+
+
+def state_words(need: int) -> int:
+    """int64 words of a kernel state buffer that must hold ``need``: the
+    power of two at or above it, so that a buffer grown for one call
+    serves calls of nearby sizes."""
+    return 1 << max(need - 1, 0).bit_length()
+
+
+class StreamState:
+    """Device memory that one kernel keeps across its calls on one (device,
+    stream): ``buf``, an int64 buffer that only that kernel writes,
+    zero-filled when it is allocated; ``lock``, held around a call's
+    bookkeeping and launch where the kernel needs them in stream order;
+    ``ticket`` and ``epoch``, bookkeeping for the kernel's wrapper."""
+
+    def __init__(self):
+        self.buf = None
+        self.ticket = 0
+        self.epoch = 0
+        self.lock = threading.Lock()
+
+    def reserve(self, need: int, device: torch.device) -> None:
+        """Make ``buf`` hold at least ``need`` words: a buffer allocated
+        anew is zero-filled, with ``ticket`` and ``epoch`` reset to 0."""
+        if self.buf is None or self.buf.numel() < need:
+            self.buf = torch.zeros((state_words(need),), dtype=torch.int64,
+                                   device=device)
+            self.ticket = self.epoch = 0
+
+
+_STATES: Dict[tuple, StreamState] = {}
+_STATES_LOCK = threading.Lock()
+
+
+def stream_state(kernel: str, device: torch.device) -> StreamState:
+    """The state ``kernel`` keeps on ``device``'s current stream (calls on
+    one stream run in order, so they may share it; another stream gets its
+    own)."""
+    key = (kernel, device.index,
+           torch.cuda.current_stream(device.index).cuda_stream)
+    st = _STATES.get(key)
+    if st is None:
+        with _STATES_LOCK:
+            st = _STATES.setdefault(key, StreamState())
+    return st

@@ -8,32 +8,40 @@
 // scatter):
 //   * _scan_batched_kernel / mask_prefix_sum_batched + compact_batched
 //     and _scan_kernel / mask_prefix_sum + compact, both ->
-//     tile_count_kernel, tile_scan_kernel, tile_write_kernel.
+//     mask_scan_kernel (the single mask is one shard).
 //
 // Bound: bytes.  Each shard's N mask bytes are read once and its N int32
-// ids (selected or -1) or positions written once, plus the counts.
+// ids (selected or -1) or positions written once, plus the counts.  At
+// the engines' shapes that is tens of nanoseconds, so the cost is the
+// device operations a call: this is one launch.
 //
-// Design: Hopper blocks run in no fixed order, so the carried axis
-// becomes a multi-block scan in three launches on one stream, with a
-// shard axis (gridDim.y = S; the single mask is S = 1), so a long mask
-// or a wide wave fills the card.  A tile is 4096 rows of one shard: 256
-// threads, each owning 16 consecutive mask bytes (one 16-byte load when
-// the shard's row is 16-byte aligned).
-//   1. tile_count_kernel: each block counts its tile's set rows (__popc of
-//      the thread's 16 flags, block reduce) into tile_counts[s][t].
-//   2. tile_scan_kernel, one block a shard: the exclusive scan of the
-//      shard's tile counts (warp-shuffle scans with a carried total) into
-//      tile_offsets[s][t], and the shard's total into count[s].
-//   3. tile_write_kernel: each block re-reads its tile, ranks each thread
-//      by an exclusive block scan of the per-thread counts, stages in
-//      shared memory either every row's exclusive position
-//      (mask_prefix_sum) or the set rows' ids in rank order (compact), and
-//      writes them out coalesced: the ids to their final slots, then -1 in
-//      its own rows at or past the shard's count, so the tiles covering a
-//      shard's -1 tail write it.
-// Counts are integer adds, so every output is exact and equal to the TPU
-// kernels' byte for byte.  The wrapper allocates the 2 * S * tiles
-// scratch words.
+// Design: a single-pass scan with decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
+// 2016).  Hopper blocks run in no fixed order, so the TPU's carried count
+// becomes a chain of published tile counts.  A tile is 4096 rows of one
+// shard: 256 threads, each reading its 16 mask bytes once (one 16-byte
+// load when the shard's row is 16-byte aligned).  A block takes its
+// (shard, tile) from an atomic ticket, so every tile before it in its
+// shard is already running or done and the look-back never waits on a
+// block that is not resident.  The block ranks its threads by an
+// exclusive block scan, publishes its tile's count (an aggregate), and
+// its warp 0 walks back over the shard's earlier tiles, 32 at a time,
+// adding aggregates until it meets an inclusive prefix; it then publishes
+// its own inclusive prefix.  Meanwhile the other warps stage the tile's
+// ids (in rank order) or positions in shared memory; then all write them
+// out coalesced.  Compaction's -1 tail needs no total: tile t knows the
+// unset rows before it, U = start - offset, and its own, u, and writes -1
+// to slots [N - U - u, N - U), which over all tiles are exactly
+// [count, N).  The shard's last tile stores its count.
+//
+// State: `state` is a buffer the wrapper owns per (device, stream) and
+// only this kernel writes: word 0 the ticket (a 64-bit counter never
+// reset; the wrapper passes the value it reached, `base`), then one
+// status word a tile, epoch << 32 | prefix flag << 31 | count.  A word of
+// an earlier call carries another epoch and reads as not ready, so
+// nothing is zeroed between calls; the wrapper zero-fills the buffer once,
+// at allocation and when the 32-bit epoch wraps.  Counts are integer adds,
+// so every output is exact and equal to the TPU kernels' byte for byte.
 #include "common.cuh"
 
 namespace {
@@ -41,6 +49,8 @@ namespace {
 constexpr int kScanThreads = 256;
 constexpr int kItems = 16;                      // mask bytes per thread
 constexpr int kTile = kScanThreads * kItems;    // mask rows per block
+constexpr unsigned long long kPrefix = 1ULL << 31;
+constexpr unsigned long long kCount = kPrefix - 1;
 
 // Flags (bit k = row base + k is set) of the 16 rows from `base`.
 __device__ __forceinline__ uint32_t row_flags(const uint8_t* __restrict__ m,
@@ -62,29 +72,19 @@ __device__ __forceinline__ uint32_t row_flags(const uint8_t* __restrict__ m,
   return f;
 }
 
-// The shard's mask row, and whether it is 16-byte aligned.
-__device__ __forceinline__ const uint8_t* shard_row(const uint8_t* mask,
-                                                   long long N,
-                                                   bool* aligned) {
-  const uint8_t* m = mask + static_cast<long long>(blockIdx.y) * N;
-  *aligned = (reinterpret_cast<uintptr_t>(m) & 15) == 0;
-  return m;
+// Status words: loads and stores the whole card sees, never cached in L1.
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(__cvta_generic_to_global(p)) : "memory");
+  return v;
 }
 
-// grid (tiles, S): tile_counts[s * tiles + t] = set rows of the tile.
-__global__ void tile_count_kernel(const uint8_t* __restrict__ mask,
-                                  long long N,
-                                  int32_t* __restrict__ tile_counts) {
-  __shared__ int scratch[32];
-  bool aligned;
-  const uint8_t* m = shard_row(mask, N, &aligned);
-  const long long base =
-      static_cast<long long>(blockIdx.x) * kTile + threadIdx.x * kItems;
-  const int n = __popc(row_flags(m, base, N, aligned));
-  const int total = repro_block_sum(n, scratch);
-  if (threadIdx.x == 0)
-    tile_counts[static_cast<long long>(blockIdx.y) * gridDim.x +
-                blockIdx.x] = total;
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(__cvta_generic_to_global(p)), "l"(v) : "memory");
 }
 
 // Inclusive scan of v over the warp.
@@ -118,90 +118,144 @@ __device__ __forceinline__ int block_exclusive(int v, int* warp_incl,
   return excl;
 }
 
-// One block a shard: the exclusive scan of its `tiles` tile counts.
-__global__ void tile_scan_kernel(const int32_t* __restrict__ tile_counts,
-                                 int32_t* __restrict__ tile_offsets,
-                                 int tiles, int32_t* __restrict__ count) {
-  __shared__ int warp_incl[32];
-  const long long row = static_cast<long long>(blockIdx.x) * tiles;
-  int carry = 0;
-  for (int base = 0; base < tiles; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int v = i < tiles ? tile_counts[row + i] : 0;
-    int total;
-    const int excl = block_exclusive(v, warp_incl, &total);
-    if (i < tiles) tile_offsets[row + i] = carry + excl;
-    carry += total;
+// Warp 0 of tile t (t >= 1) of a shard whose status words start at
+// `status`: publish the tile's count, walk back to the nearest inclusive
+// prefix, publish the tile's own; returns the set rows before the tile
+// (valid in every lane).
+__device__ __forceinline__ int look_back(unsigned long long* status,
+                                         long long t, int total,
+                                         unsigned long long tag) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) store_status(status + t, tag | total);
+  int offset = 0;
+  for (long long j = t - 1;; j -= 32) {
+    const long long i = j - lane;
+    unsigned long long w = tag | kPrefix;   // before tile 0: a prefix of 0
+    if (i >= 0) {
+      do {
+        w = load_status(status + i);
+      } while ((w >> 32) != (tag >> 32));
+    }
+    // the lowest lane holding a prefix is the nearest one
+    const unsigned prefixes =
+        __ballot_sync(0xffffffffu, (w & kPrefix) != 0);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 32;
+    int v = lane <= stop ? static_cast<int>(w & kCount) : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    offset += v;
+    if (prefixes) break;
   }
-  if (threadIdx.x == 0) count[blockIdx.x] = carry;
+  if (lane == 0) store_status(status + t, tag | kPrefix | (offset + total));
+  return offset;
 }
 
-// grid (tiles, S): the tile's outputs in the shard's row of `out`.  A
-// thread's 16 rows are ranked in registers, then staged in shared memory
-// and written out by consecutive threads to consecutive slots (a thread
-// writing its own 16 rows would scatter each warp's stores 64 bytes apart).
+// grid: S * tiles blocks, one a tile, in ticket order.  The tile's outputs
+// go to its shard's row of `out`: IDS the ascending ids of set rows, -1
+// padded, else every row's exclusive position.  A thread's 16 rows are
+// ranked in registers, then staged in shared memory and written out by
+// consecutive threads to consecutive slots (a thread writing its own 16
+// rows would scatter each warp's stores 64 bytes apart).  Eight blocks
+// an SM (32 registers a thread) keep more tiles writing while others wait
+// in the look-back.
 template <bool IDS>
-__global__ void tile_write_kernel(const uint8_t* __restrict__ mask,
-                                  long long N,
-                                  const int32_t* __restrict__ tile_offsets,
-                                  const int32_t* __restrict__ count,
-                                  int32_t* __restrict__ out) {
+__global__ void __launch_bounds__(kScanThreads, 8)
+mask_scan_kernel(const uint8_t* __restrict__ mask, long long N, int tiles,
+                 int32_t* __restrict__ out, int32_t* __restrict__ count,
+                 unsigned long long* __restrict__ state,
+                 unsigned long long base, unsigned long long epoch) {
   __shared__ int warp_incl[32];
   // IDS: the tile's ids in rank order; else row r's position at
   // (r / 16) * 17 + r % 16 (one pad word a thread: no bank conflicts)
   __shared__ int stage[kScanThreads * (kItems + 1)];
-  bool aligned;
-  const uint8_t* m = shard_row(mask, N, &aligned);
-  int32_t* o = out + static_cast<long long>(blockIdx.y) * N;
-  const long long start = static_cast<long long>(blockIdx.x) * kTile;
-  const long long base = start + threadIdx.x * kItems;
+  __shared__ long long ticket;
+  __shared__ int tile_offset;
+  if (threadIdx.x == 0)
+    ticket = static_cast<long long>(atomicAdd(state, 1ULL) - base);
+  __syncthreads();
+  const long long s = ticket / tiles;
+  const long long t = ticket - s * tiles;
+  const uint8_t* m = mask + s * N;
+  int32_t* o = out + s * N;
+  const bool aligned = (reinterpret_cast<uintptr_t>(m) & 15) == 0;
+  const long long start = t * kTile;
+  const long long row = start + threadIdx.x * kItems;
   const int rows = static_cast<int>(min(static_cast<long long>(kTile),
                                         N - start));
-  const uint32_t f = row_flags(m, base, N, aligned);
+  const uint32_t f = row_flags(m, row, N, aligned);
   int total;
   int rank = block_exclusive(__popc(f), warp_incl, &total);
-  const int offset = tile_offsets[static_cast<long long>(blockIdx.y) *
-                                      gridDim.x + blockIdx.x];
+  const unsigned long long tag = epoch << 32;
+  unsigned long long* status = state + 1 + s * tiles;
+  if (threadIdx.x < 32) {
+    int offset = 0;
+    if (t == 0) {
+      if (threadIdx.x == 0) store_status(status, tag | kPrefix | total);
+    } else {
+      offset = look_back(status, t, total, tag);
+    }
+    if (threadIdx.x == 0) {
+      tile_offset = offset;
+      if (t == tiles - 1) count[s] = offset + total;
+    }
+  }
   if (IDS) {
     for (int k = 0; k < kItems; ++k)
-      if ((f >> k) & 1u) stage[rank++] = static_cast<int32_t>(base + k);
-    __syncthreads();
-    for (int j = threadIdx.x; j < total; j += kScanThreads)
-      o[offset + j] = stage[j];
-    const long long c = count[blockIdx.y];  // slots past it get -1
-    for (int j = threadIdx.x; j < rows; j += kScanThreads)
-      if (start + j >= c) o[start + j] = -1;
+      if ((f >> k) & 1u) stage[rank++] = static_cast<int32_t>(row + k);
   } else {
-    int pos = offset + rank;
+    int pos = rank;
     for (int k = 0; k < kItems; ++k) {
       stage[threadIdx.x * (kItems + 1) + k] = pos;
       pos += (f >> k) & 1u;
     }
-    __syncthreads();
+  }
+  __syncthreads();
+  const int offset = tile_offset;
+  if (IDS) {
+    for (int j = threadIdx.x; j < total; j += kScanThreads)
+      o[offset + j] = stage[j];
+    // this tile's share of the -1 tail [count, N), in 16-byte stores
+    // after the ints that reach a 16-byte boundary
+    const long long unset_before = start - offset;
+    const int unset = rows - total;
+    int32_t* tail = o + (N - unset_before - unset);
+    const int head = min(unset, static_cast<int>(
+        ((16 - (reinterpret_cast<uintptr_t>(tail) & 15)) & 15) / 4));
+    if (static_cast<int>(threadIdx.x) < head) tail[threadIdx.x] = -1;
+    int4* quads = reinterpret_cast<int4*>(tail + head);
+    const int n4 = (unset - head) / 4;
+    for (int j = threadIdx.x; j < n4; j += kScanThreads)
+      quads[j] = make_int4(-1, -1, -1, -1);
+    for (int j = head + 4 * n4 + threadIdx.x; j < unset; j += kScanThreads)
+      tail[j] = -1;
+  } else {
     for (int j = threadIdx.x; j < rows; j += kScanThreads)
-      o[start + j] = stage[(j / kItems) * (kItems + 1) + j % kItems];
+      o[start + j] = offset + stage[(j / kItems) * (kItems + 1) + j % kItems];
   }
 }
 
-// The three launches over S masks of N rows each.
-cudaError_t mask_scan(const void* mask, void* out, void* count,
-                      void* scratch, int S, int N, bool ids,
-                      cudaStream_t st) {
+// One launch over S masks of N rows each.
+cudaError_t mask_scan(const void* mask, void* out, void* count, void* state,
+                      int S, int N, bool ids, long long base,
+                      long long epoch, cudaStream_t st) {
   const int tiles = (N + kTile - 1) / kTile;
+  const long long blocks = static_cast<long long>(S) * tiles;
+  if (blocks > 0x7fffffffLL || epoch < 1 || epoch > 0xffffffffLL)
+    return cudaErrorInvalidValue;
   const auto* m = static_cast<const uint8_t*>(mask);
-  auto* tile_counts = static_cast<int32_t*>(scratch);
-  int32_t* tile_offsets = tile_counts + static_cast<long long>(S) * tiles;
   auto* c = static_cast<int32_t*>(count);
   auto* o = static_cast<int32_t*>(out);
-  const dim3 grid(tiles, S);
-  tile_count_kernel<<<grid, kScanThreads, 0, st>>>(m, N, tile_counts);
-  tile_scan_kernel<<<S, 1024, 0, st>>>(tile_counts, tile_offsets, tiles, c);
+  auto* w = static_cast<unsigned long long*>(state);
+  const auto b = static_cast<unsigned long long>(base);
+  const auto e = static_cast<unsigned long long>(epoch);
+  const unsigned grid = static_cast<unsigned>(blocks);
   if (ids)
-    tile_write_kernel<true><<<grid, kScanThreads, 0, st>>>(
-        m, N, tile_offsets, c, o);
+    mask_scan_kernel<true><<<grid, kScanThreads, 0, st>>>(m, N, tiles, o, c,
+                                                          w, b, e);
   else
-    tile_write_kernel<false><<<grid, kScanThreads, 0, st>>>(
-        m, N, tile_offsets, c, o);
+    mask_scan_kernel<false><<<grid, kScanThreads, 0, st>>>(m, N, tiles, o,
+                                                           c, w, b, e);
   return cudaGetLastError();
 }
 
@@ -210,29 +264,33 @@ cudaError_t mask_scan(const void* mask, void* out, void* count,
 REPRO_STRERROR
 
 // mask [S, N] bool (one byte each) -> idx [S, N] int32 (ascending ids of
-// set rows, -1 padded), counts [S] int32.  scratch holds
-// 2 * S * ceil(N / 4096) int32.
+// set rows, -1 padded), counts [S] int32.  `state` holds the ticket and
+// at least S * ceil(N / 4096) status words (uint64); `base` is the ticket
+// this call starts at, `epoch` in [1, 2^32) differs from the previous
+// call's on this buffer.
 REPRO_EXPORT int repro_compact_batched(const void* mask, void* idx,
-                                       void* counts, void* scratch, int S,
-                                       int N, void* stream) {
+                                       void* counts, void* state, int S,
+                                       int N, long long base,
+                                       long long epoch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0) return static_cast<int>(cudaSuccess);
   if (N <= 0)
     return static_cast<int>(
         repro_memset(counts, 0, sizeof(int32_t) * S, st));
-  return static_cast<int>(mask_scan(mask, idx, counts, scratch, S, N, true,
-                                    st));
+  return static_cast<int>(mask_scan(mask, idx, counts, state, S, N, true,
+                                    base, epoch, st));
 }
 
 // mask [N] bool (one byte each) -> out [N] int32: with ids = 0 the
 // exclusive prefix sum, with ids = 1 the ascending ids of set rows, -1
-// padded; count [1] int32.  scratch holds 2 * ceil(N / 4096) int32.
+// padded; count [1] int32.  `state`, `base` and `epoch` as above, for
+// S = 1.
 REPRO_EXPORT int repro_mask_scan(const void* mask, void* out, void* count,
-                                 void* scratch, int N, int ids,
-                                 void* stream) {
+                                 void* state, int N, int ids, long long base,
+                                 long long epoch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N <= 0)
     return static_cast<int>(repro_memset(count, 0, sizeof(int32_t), st));
-  return static_cast<int>(mask_scan(mask, out, count, scratch, 1, N,
-                                    ids != 0, st));
+  return static_cast<int>(mask_scan(mask, out, count, state, 1, N,
+                                    ids != 0, base, epoch, st));
 }

@@ -458,12 +458,16 @@ def test_launch_counter_equals_wrapper_calls(card):
         assert grew == {counter: 3}, name
 
 
+_T = compact.SCAN_TILE
+
+
 @pytest.mark.parametrize("kind", ["none", "all", "random"])
 @pytest.mark.parametrize("s", [1, 3, 128])
-@pytest.mark.parametrize("n", [4095, 4096, 4097, 12289])
+@pytest.mark.parametrize("n", [_T - 1, _T, _T + 1, 3 * _T + 1])
 def test_compact_batched_kernel_tile_edges(card, n, s, kind):
-    """Masks that straddle the 4096-row scan tile: the kernel against the
-    plain version, byte for byte, one launch a call."""
+    """Masks that straddle the scan's tile (``compact.SCAN_TILE`` rows):
+    the kernel against the plain version, byte for byte, one launch a
+    call."""
     if kind == "none":
         masks = np.zeros((s, n), bool)
     elif kind == "all":
@@ -481,6 +485,158 @@ def test_compact_batched_kernel_tile_edges(card, n, s, kind):
     want = ref.compact_batched_ref(masks)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _one_launch(counter, call):
+    """``call()`` once, asserting it added exactly one launch to
+    ``counter``; returns its result."""
+    before = _build.kernel_launches().get(counter, 0)
+    out = call()
+    torch.cuda.synchronize()
+    assert _build.kernel_launches()[counter] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("n,s", [(17, 5), (4111, 3), (900_001, 2),
+                                 (20_003, 8)])
+def test_compact_batched_kernel_unaligned_rows(card, n, s):
+    """N not a multiple of 16: every shard after the first starts off a
+    16-byte boundary, so its rows take the scalar loads."""
+    rng = np.random.default_rng(n)
+    masks = torch.from_numpy(rng.random((s, n)) < rng.random((s, 1))) \
+        .to(card)
+    _same(_one_launch("compact_batched",
+                      lambda: compact.compact_batched(masks)),
+          ref.compact_batched_ref(masks))
+
+
+@pytest.mark.parametrize("n", [2 * _T - 1, 2 * _T, 2 * _T + 1, 3 * _T + 5])
+def test_compact_batched_kernel_more_tiles_than_resident(card, n):
+    """600 shards: more tiles than the card holds blocks at once, so tiles
+    look back over predecessors that ran in earlier waves of blocks; n
+    straddles the tile edges."""
+    rng = np.random.default_rng(n)
+    masks = torch.from_numpy(rng.random((600, n)) < rng.random((600, 1))) \
+        .to(card)
+    _same(_one_launch("compact_batched",
+                      lambda: compact.compact_batched(masks)),
+          ref.compact_batched_ref(masks))
+
+
+def test_mask_scan_kernel_long_mask(card):
+    """One mask of 5,000,003 rows (1,221 tiles, more than the card holds
+    at once): ids and exclusive positions against the plain versions."""
+    n = 5_000_003
+    rng = np.random.default_rng(5)
+    mask = torch.from_numpy(rng.random(n) < .2).to(card)
+    _same(_one_launch("compact", lambda: compact.compact(mask)),
+          ref.compact_ref(mask))
+    _same(_one_launch("mask_prefix_sum",
+                      lambda: compact.mask_prefix_sum(mask)),
+          ref.mask_prefix_sum_ref(mask))
+
+
+def test_compact_batched_kernel_past_65535_shards(card):
+    """70,000 shards of 16 rows: more shards than a grid's y extent; the
+    kernel answers, equal to the plain version."""
+    rng = np.random.default_rng(70_000)
+    masks = torch.from_numpy(rng.random((70_000, 16)) < .4).to(card)
+    _same(_one_launch("compact_batched",
+                      lambda: compact.compact_batched(masks)),
+          ref.compact_batched_ref(masks))
+
+
+INTERSECT_W = [1, 255, 256, 257, 625, 2048, 28125]
+
+
+@pytest.mark.parametrize("s", [1, 8, 128])
+@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("w", INTERSECT_W)
+def test_bitmap_intersect_kernel_edges(card, w, k, s):
+    """Across the block and cluster edges of W, K = 1 and 5, S = 1, 8 and
+    128: random and all-ones words (count = 32·W), byte for byte against
+    the plain version, one launch a call; at S = 1 the single-stack
+    wrapper through the same entry."""
+    rng = np.random.default_rng(w * 7 + k * 3 + s)
+    words = rng.integers(0, 1 << 32, (s, k, w), dtype=np.uint64) \
+        .astype(np.uint32)
+    words[:, :, rng.integers(0, w)] |= 0x80000000          # the sign bit
+    for stack in (_words(words, card),
+                  _words(np.full((s, k, w), 0xFFFFFFFF, np.uint32), card)):
+        got = _one_launch("bitmap_intersect_batched",
+                          lambda: bitset.bitmap_intersect_batched(stack))
+        _same(got, ref.bitmap_intersect_batched_ref(stack))
+        if s == 1:
+            one = _one_launch("bitmap_intersect",
+                              lambda: bitset.bitmap_intersect(stack[0]))
+            _same(one, ref.bitmap_intersect_ref(stack[0]))
+    assert got[1].tolist() == [32 * w] * s
+
+
+def test_bitmap_intersect_kernel_unaligned_stack(card):
+    """A stack that starts 4 bytes past a 16-byte boundary: the scalar
+    loads, equal to the plain version."""
+    rng = np.random.default_rng(5)
+    flat = _words(rng.integers(0, 1 << 32, 8 * 5 * 1024 + 1,
+                               dtype=np.uint64).astype(np.uint32), card)
+    stack = flat[1:].view(8, 5, 1024)
+    _same(bitset.bitmap_intersect_batched(stack),
+          ref.bitmap_intersect_batched_ref(stack))
+
+
+def test_no_stale_state_across_calls(card):
+    """200 calls in a row of both kernels at varying S, W, N and
+    densities (freed buffers, status words and epochs reused), each equal
+    to the plain version; and two calls on one input give the same
+    bits."""
+    rng = np.random.default_rng(200)
+    for i in range(200):
+        s = int(rng.choice([1, 2, 8, 37, 128]))
+        w = int(rng.integers(1, 3000))
+        k = int(rng.integers(1, 6))
+        stack = _words(rng.integers(0, 1 << 32, (s, k, w), dtype=np.uint64)
+                       .astype(np.uint32) | rng.integers(
+                           0, 2, (s, k, 1)).astype(np.uint32) * 0xFFFFFFFF,
+                       card)
+        want = ref.bitmap_intersect_batched_ref(stack)
+        _same(bitset.bitmap_intersect_batched(stack), want)
+        _same(bitset.bitmap_intersect_batched(stack), want)
+        n = int(rng.choice([1, 15, 4096, 4097, 20_000, 100_003]))
+        masks = torch.from_numpy(rng.random((s, n)) < rng.random((s, 1))) \
+            .to(card)
+        want = ref.compact_batched_ref(masks)
+        _same(compact.compact_batched(masks), want)
+        _same(compact.compact_batched(masks), want)
+        one = masks[i % s]
+        _same(compact.compact(one), ref.compact_ref(one))
+        _same(compact.mask_prefix_sum(one), ref.mask_prefix_sum_ref(one))
+
+
+def test_scan_epoch_wrap_on_card(card):
+    """The calls across an epoch wrap (the state zero-filled, the ticket
+    restarted) stay equal to the plain version."""
+    rng = np.random.default_rng(3)
+    masks = torch.from_numpy(rng.random((4, 9000)) < .5).to(card)
+    want = ref.compact_batched_ref(masks)
+    _same(compact.compact_batched(masks), want)
+    st = _build.stream_state("mask_scan", masks.device)
+    st.epoch = compact.EPOCH_LIMIT - 3
+    for _ in range(5):       # epochs L-2, L-1, then 1, 2, 3 after the wrap
+        _same(compact.compact_batched(masks), want)
+    assert st.epoch == 3
+
+
+def test_intersect_state_reset_on_card(card):
+    """Shards of several blocks close on their arrival words, and the last
+    block of each leaves its word at 0 for the next call."""
+    rng = np.random.default_rng(4)
+    stack = _words(rng.integers(0, 1 << 32, (6, 3, 5000), dtype=np.uint64)
+                   .astype(np.uint32), card)
+    _same(bitset.bitmap_intersect_batched(stack),
+          ref.bitmap_intersect_batched_ref(stack))
+    torch.cuda.synchronize()
+    st = _build.stream_state("bitmap_intersect", stack.device)
+    assert not bool(st.buf[:6].any())
 
 
 def test_fused_wave_on_card_matches_numpy_oracle(card):

@@ -316,6 +316,123 @@ def test_segment_agg_shared_max_groups_matches_kernel():
     assert found and int(found.group(1)) == segment_agg.SHARED_MAX_GROUPS
 
 
+def test_scan_tile_matches_kernel():
+    """The wrapper's SCAN_TILE is the kernel's tile: threads × mask bytes
+    a thread."""
+    src = (_CSRC / "compact.cu").read_text()
+    threads = re.search(r"constexpr int kScanThreads = (\d+);", src)
+    items = re.search(r"constexpr int kItems = (\d+);", src)
+    assert threads and items
+    assert int(threads.group(1)) * int(items.group(1)) == compact.SCAN_TILE
+
+
+@pytest.mark.parametrize("need", [0, 1, 2, 3, 4, 7, 8, 221, 1761, 70_001])
+def test_state_words(need):
+    """A kernel's state buffer: a power of two of int64 words at or above
+    what the call needs, and below twice that."""
+    words = _build.state_words(need)
+    assert words >= need and words & (words - 1) == 0
+    assert words < 2 * need or words == 1
+
+
+def test_intersect_block_words_matches_kernel():
+    """The wrapper's INTERSECT_BLOCK_WORDS is the kernel's: threads × words
+    a lane."""
+    src = (_CSRC / "bitset.cu").read_text()
+    threads = re.search(r"constexpr int kThreads = (\d+);", src)
+    lane = re.search(r"constexpr int kLaneWords = (\d+);", src)
+    assert threads and lane
+    assert int(threads.group(1)) * int(lane.group(1)) == \
+        bitset.INTERSECT_BLOCK_WORDS
+
+
+@pytest.mark.parametrize("s,w,want", [(8, 625, 0), (128, 1024, 0),
+                                      (1, 1025, 1), (8, 28_125, 8),
+                                      (3, 4096, 3)])
+def test_intersect_state_words(s, w, want):
+    """No state for one block a shard; else one int64 word a shard."""
+    assert bitset.intersect_state_words(s, w) == want
+
+
+def test_scan_next_epoch_wraps():
+    """Epochs count up from 1 and wrap before the 32-bit field overflows;
+    0 (a zero-filled word) is never a call's epoch."""
+    assert compact.next_epoch(0) == (1, False)
+    assert compact.next_epoch(41) == (42, False)
+    last = compact.EPOCH_LIMIT - 1
+    assert compact.next_epoch(last - 1) == (last, False)
+    assert compact.next_epoch(last) == (1, True)
+    assert last == 0xFFFFFFFF
+
+
+def _fake_card(monkeypatch):
+    """Record ``_build.launch`` calls instead of launching, on one fake
+    stream with no states yet; returns the list of calls."""
+    calls = []
+
+    def fake_launch(counter, entry, dev, *args):
+        calls.append((counter, entry, args))
+
+    class _Stream:
+        cuda_stream = 1234
+
+    monkeypatch.setattr(_build, "launch", fake_launch)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda index=None: _Stream())
+    monkeypatch.setattr(_build, "_STATES", {})
+    return calls
+
+
+def test_scan_state_bookkeeping(monkeypatch):
+    """Each scan passes the ticket its tiles start at and a new epoch; the
+    buffer grows (zero-filled, ticket and epoch restarted) only when a call
+    needs more words, and is zero-filled again when the epoch wraps."""
+    calls = _fake_card(monkeypatch)
+    mask = torch.zeros((3, 2 * compact.SCAN_TILE + 1), dtype=torch.bool)
+    out = torch.empty(0)
+
+    def call(s, n):
+        compact._scan("compact_batched", "repro_compact_batched", mask,
+                      out, out, s, n, s, n)
+        args = calls[-1][2]
+        return args[3], args[4:]
+
+    t = compact.SCAN_TILE
+    buf0, args = call(3, 2 * t + 1)                # 9 tiles: 16 words
+    assert args == (3, 2 * t + 1, 0, 1) and buf0.numel() == 16
+    buf1, args = call(2, t)                        # 2 tiles, same buffer
+    assert buf1 is buf0 and args == (2, t, 9, 2)
+    buf2, args = call(1, 5)
+    assert buf2 is buf0 and args == (1, 5, 11, 3)
+    buf3, args = call(16, t)                       # 16 tiles: grows to 32
+    assert buf3.numel() == 32 and args == (16, t, 0, 1)
+    assert not bool(buf3.any())
+    st = next(iter(_build._STATES.values()))
+    st.epoch = compact.EPOCH_LIMIT - 1
+    buf3.fill_(7)
+    buf4, args = call(1, 5)                        # the epoch wraps
+    assert buf4 is buf3 and args == (1, 5, 0, 1) and not bool(buf4.any())
+
+
+def test_intersect_state_bookkeeping(monkeypatch):
+    """One block a shard launches with no state (a null pointer); wider
+    shards get the kernel's zero-filled buffer, grown only when a call
+    needs more, and kept per stream apart from the scan's."""
+    calls = _fake_card(monkeypatch)
+    stack = torch.zeros((8, 5, 3000), dtype=torch.int32)
+    out = torch.empty(0)
+    bitset._intersect("bitmap_intersect_batched", stack, out, out, 8, 5, 625)
+    assert calls[-1][1] == "repro_bitmap_intersect"
+    assert calls[-1][2][-1] is None and not _build._STATES
+    bitset._intersect("bitmap_intersect_batched", stack, out, out, 8, 5, 3000)
+    buf = calls[-1][2][-1]
+    assert buf.numel() == 8 and not bool(buf.any())    # a word a shard
+    bitset._intersect("bitmap_intersect", stack, out, out, 1, 5, 3000)
+    assert calls[-1][2][-1] is buf and calls[-1][0] == "bitmap_intersect"
+    compact._scan("compact", "repro_mask_scan", stack, out, out, 1, 10, 10, 1)
+    assert calls[-1][2][3] is not buf and len(_build._STATES) == 2
+
+
 # ------------------------------------------------------------------- refine
 
 def _tracks(rng, n_docs, max_len, empty_every=3):
