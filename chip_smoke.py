@@ -44,6 +44,20 @@ around it: it imports nothing of the JAX package.  Phases:
    decode logits at position S-1 after a prefill of S-1 tokens against
    the prefill's logits over S tokens (the kernel path against the plain
    decode path);
+3f. engines: on the same world, each check against the numpy oracle —
+   flume: Q7-agg and Q1 through ``FlumeEngine`` (checkpoints in a
+   temporary directory), ⌈shards/8⌉ ``run_wave_fused`` a job, a second
+   ``collect`` of the same job running no task and launching nothing,
+   beside ``AdHocEngine`` on the same backend; partitions: Q7-agg, Q1
+   and Q11 at P = 2 and 4 on the one card, byte-identical to P = 1 there,
+   Σ_p ⌈shards_p/8⌉ ``run_wave_fused`` plus ``merge_combines()``
+   ``merge_partials``, then Q7-agg at P = 4 with partition 1 failing once
+   (rerouted, counted on ``profile.retries``); hll: per-hour
+   ``approx_distinct`` of road ids over all SpeedObservations (24 groups
+   × 4,096 registers) and Trips ``distinct_approx`` at P = 1/2/4, the
+   registers byte-equal to the oracle's, one ``segment_hll`` a finalize;
+   each sub-phase's warm wall time, launches and busy share on an
+   ``engines`` line;
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the largest shape the main path gave it (both segment_agg branches —
    the shared one must give the same bits from two calls, and the library
@@ -55,7 +69,10 @@ around it: it imports nothing of the JAX package.  Phases:
    head dims 64 and 128) and at one larger shape, timed with CUDA events
    beside the plain version and a library call, and its wrapper's device
    time and device operations per call from ``torch.profiler``
-   (``device_ms``, ``device_ops``, ``device_records``);
+   (``device_ms``, ``device_ops``, ``device_records``); then the two
+   plain PyTorch ops of phase 3f (``segment_hll``, ``merge_partials``) at
+   their phase-3f inputs, against the same function on the CPU bit for
+   bit, timed the same way (an ``engine_ops`` line: they are not kernels);
 4b. launch_path: µs a call of each step of a kernel launch through the
    entry table, of the ``bitset_binary`` and ``segment_agg`` wrappers and
    of ``torch.bitwise_and``, 10,000 calls a step, the median of 5 turns;
@@ -68,7 +85,7 @@ around it: it imports nothing of the JAX package.  Phases:
    PyTorch's own device operations as recorded.
 
 Every main-path run sets the launch counters to 0 just before it and
-reads them just after; a kernel's ``launches`` is the sum over phases 3-3e.
+reads them just after; a kernel's ``launches`` is the sum over phases 3-3f.
 ``bitset_binary`` (row 8) is on no path of the engines (only
 ``ops.bitmap_binary`` reaches it), so it reports 0 launches and is held
 and timed in phase 4 only.
@@ -223,8 +240,8 @@ def main() -> int:
         TorchBackend
     from repro_torch.serve import QueryServer
     from repro_torch.fdb import build_fdb
-    from repro_torch.kernels import _build, bitset, compact, ops, ref, \
-        refine, segment_agg
+    from repro_torch.kernels import _build, bitset, compact, fused, merge, \
+        ops, ref, refine, segment_agg
     from repro_torch.kernels import flash_attention as fa_kernel
     from repro_torch.tess import Tesseract
 
@@ -591,11 +608,15 @@ def main() -> int:
         print("retry " + json.dumps({**row, "match": True}))
 
     recording[0] = None
-    for mod, name in wrappers:
-        setattr(mod, name, originals[name])
 
     # --------------------------------------------------------------- 3e. lm
     lm_inputs = lm_phase(torch, np, totals)
+
+    # ---------------------------------------------------------- 3f. engines
+    engine_inputs = engines_phase(torch, np, cat, queries, oracle, counted,
+                                  check_close, need_launches)
+    for mod, name in wrappers:
+        setattr(mod, name, originals[name])
 
     for k, n in totals.items():
         if n == 0 and k not in OFF_PATH:
@@ -988,6 +1009,27 @@ def main() -> int:
               f"); large {lshape} {large['ms']:.4f} ms (bound "
               f"{large['bound_ms']:.4f}, plain {large['plain_ms']:.3f})")
 
+    # phase 3f's plain PyTorch ops (not kernels: the JAX package lowers
+    # both to plain jnp)
+    engine_fns = {"segment_hll": fused.segment_hll,
+                  "merge_partials": merge.merge_partials}
+    for name, (args, nbytes, nops) in engine_inputs.items():
+        fn = engine_fns[name]
+        on_cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                       for a in args)
+        exact(name, tuple(o.cpu() for o in _as_tuple(fn(*args))),
+              _as_tuple(fn(*on_cpu)))
+        b_ms, b_by = bound(nbytes, nops)
+        dev_ms, dev_ops, dev_records = device_ms(lambda: fn(*args))
+        row = {"name": name, "shape": [list(a.shape) for a in args
+                                       if isinstance(a, torch.Tensor)],
+               "max_abs_err": 0.0, "ms": cuda_ms(lambda: fn(*args), 20),
+               "device_ms": dev_ms, "device_ops": dev_ops,
+               "device_records": dev_records,
+               "cpu_ms": _host_ms(lambda: fn(*on_cpu), 3),
+               "bound_ms": b_ms, "bound_by": b_by}
+        print("engine_ops " + json.dumps(row))
+
     print("launch_path " + json.dumps(launch_path(torch, np)))
     profile_queries(torch, queries, sessions)
     profile_serve(torch, batches, serve_backend, cat)
@@ -997,6 +1039,293 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _host_ms(fn, iters):
+    """Host wall ms a call of ``fn`` (CPU tensors), over ``iters`` calls."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+#: phase 3f: partition counts on the one card, and the partition that
+#: fails once in its reroute check
+ENGINE_PARTITIONS = (2, 4)
+FAILING_PARTITION = 1
+
+
+def engines_phase(torch, np, cat, queries, oracle, counted, check_close,
+                  need_launches):
+    """Phase 3f: Warp:Flume, the partition layer and grouped
+    ``approx_distinct`` on the card (see the module docstring).  Prints
+    one ``engines`` line a sub-phase and query; returns the largest
+    inputs ``segment_hll`` and ``merge_partials`` were given, with the
+    bytes and operations of their bound, for phase 4."""
+    import cProfile
+    import pstats
+    import shutil
+    import tempfile
+    from repro_torch.core import P, fdb, group
+    from repro_torch.core.planner import PartitionPlan, partition_shards
+    from repro_torch.core.sketches import HyperLogLog, hash_values, \
+        hll_register_rows
+    from repro_torch.exec import AdHocEngine, FaultPlan, FlumeEngine, \
+        NumpyBackend, TorchBackend
+    from repro_torch.kernels import fused, merge
+    from repro_torch.launch.elastic import reroute_partitions
+
+    inputs = {}
+    capturing = [False]
+
+    def capture(name, fn):
+        def call(*args):
+            if capturing[0]:
+                size = args[0].numel()
+                if name not in inputs or inputs[name][0] < size:
+                    inputs[name] = (size, tuple(
+                        a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args))
+            return fn(*args)
+        return call
+
+    originals = (merge.merge_partials, fused.segment_hll)
+    merge.merge_partials = capture("merge_partials", originals[0])
+    fused.segment_hll = capture("segment_hll", originals[1])
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    def identical(where, got, base):
+        if got.batch.paths() != base.batch.paths() or got.batch.n != \
+                base.batch.n:
+            fail(f"{where}: columns {got.batch.paths()} / {got.batch.n} "
+                 f"rows vs {base.batch.paths()} / {base.batch.n} at P = 1")
+        for p in base.batch.paths():
+            a, b = got.batch[p].values, base.batch[p].values
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                fail(f"{where}: column {p} differs from P = 1 on the card")
+
+    def wave_kernels(where, kc, waves, has_refine):
+        need = {"bitmap_intersect_batched": waves, "compact_batched": waves}
+        if has_refine:
+            need["refine_tracks_batched"] = waves
+        need_launches(where, kc, need)
+
+    def busy(fn):
+        """The device's busy ms and idle share over one more warm run of
+        ``fn`` under ``torch.profiler``, counted like any other run."""
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            _, _, kc, ms = counted("busy", fn)
+        b = _device_busy(torch, prof, ms, kc)
+        return {k: b[k] for k in ("device_busy_ms", "device_idle_share")}
+
+    # ------------------------------------------------------------ flume
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_flume_")
+    try:
+        be = TorchBackend()
+        adhoc = AdHocEngine(cat, backend=be)
+        fl = FlumeEngine(cat, backend=be, ckpt_dir=tmp)
+        for qname in ("Q7-agg", "Q1"):
+            make, has_refine, _ = queries[qname]
+            flow = make()
+            want = oracle.run(flow).to_records()
+            row = {"sub": "flume", "query": qname}
+            times = {"flume": [], "adhoc": []}
+            jobs = [f"{qname}-{i}" for i in range(WARM_RUNS + 2)]
+            for i, job in enumerate(jobs[:-1]):
+                run = "cold" if i == 0 else "warm"
+                ran = fl.stats["tasks_run"]
+                res, lc, kc, ms = counted(
+                    run, lambda: fl.collect(flow, job_id=job))
+                shards = len(res.plan.shard_ids)
+                waves = math.ceil(shards / WAVE)
+                where = f"flume {qname} {run}"
+                if lc != {"run_wave_fused": waves}:
+                    fail(f"{where}: dispatches {lc}, expected "
+                         f"{{'run_wave_fused': {waves}}}")
+                wave_kernels(where, kc, waves, has_refine)
+                if fl.stats["tasks_run"] - ran != shards:
+                    fail(f"{where}: {fl.stats['tasks_run'] - ran} tasks ran "
+                         f"for {shards} shards")
+                check_close(where, res.to_records(), want)
+                if run == "cold":
+                    row.update(cold_ms=ms, shards=shards, waves=waves,
+                               kernels=kc)
+                    continue
+                times["flume"].append(ms)
+                res, lc, _, ms = counted(run, lambda: adhoc.collect(flow))
+                if lc != {"run_wave_fused": waves}:
+                    fail(f"adhoc {qname} {run}: dispatches {lc}")
+                check_close(f"adhoc {qname}", res.to_records(), want)
+                times["adhoc"].append(ms)
+            last = jobs[-2]
+            ckpt_bytes = sum(f.stat().st_size
+                             for f in Path(tmp, last).rglob("*.pkl"))
+            first = counted("repeat", lambda: fl.collect(
+                flow, job_id=last))[0].to_records()
+            ran = fl.stats["tasks_run"]
+            res, lc, kc, ms = counted("repeat",
+                                      lambda: fl.collect(flow, job_id=last))
+            if lc or kc or fl.stats["tasks_run"] != ran \
+                    or res.to_records() != first:
+                fail(f"flume {qname} repeat: dispatches {lc}, kernels {kc}, "
+                     f"tasks {fl.stats['tasks_run'] - ran}")
+            row.update(
+                warm_ms=median(times["flume"]),
+                adhoc_warm_ms=median(times["adhoc"]),
+                checkpoint_cost=(median(times["flume"])
+                                 / median(times["adhoc"]) - 1),
+                checkpoint_bytes=ckpt_bytes, repeat_ms=ms, repeat_launches=0,
+                **busy(lambda: fl.collect(flow, job_id=jobs[-1])),
+                match=True)
+            print("engines " + json.dumps(row))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ------------------------------------------------------- partitions
+    for qname in ("Q7-agg", "Q1", "Q11"):
+        make, has_refine, has_agg = queries[qname]
+        flow = make()
+        want = oracle.run(flow).to_records()
+        be = TorchBackend()
+        one = AdHocEngine(cat, backend=be, partitions=1)
+        counted("cold", lambda: one.collect(flow))
+        base, _, _, _ = counted("warm", lambda: one.collect(flow))
+        check_close(f"partitions {qname} P=1", base.to_records(), want)
+        row = {"sub": "partitions", "query": qname,
+               "P1_warm_ms": median([counted("warm", lambda: one.collect(
+                   flow))[3] for _ in range(WARM_RUNS)])}
+        for parts in ENGINE_PARTITIONS:
+            eng = AdHocEngine(cat, backend=be, partitions=parts)
+            times = []
+            for run in ["cold"] + ["warm"] * WARM_RUNS + ["capture"]:
+                capturing[0] = run == "capture"
+                res, lc, kc, ms = counted(run, lambda: eng.collect(flow))
+                capturing[0] = False
+                pp = partition_shards(res.plan.shard_ids, parts)
+                waves = pp.wave_dispatches(WAVE)
+                need = {"run_wave_fused": waves}
+                if has_agg and pp.merge_combines():
+                    need["merge_partials"] = pp.merge_combines()
+                where = f"partitions {qname} P={parts} {run}"
+                if lc != need:
+                    fail(f"{where}: dispatches {lc}, expected {need}")
+                wave_kernels(where, kc, waves, has_refine)
+                identical(where, res, base)
+                check_close(where, res.to_records(), want)
+                if run == "warm":
+                    times.append(ms)
+                elif run == "cold":
+                    row[f"P{parts}_cold_ms"] = ms
+            row[f"P{parts}_warm_ms"] = median(times)
+            row[f"P{parts}_dispatches"] = lc
+            row[f"P{parts}_busy"] = busy(lambda: eng.collect(flow))
+        # where P = 4's extra time goes on the host: one more warm run
+        host = cProfile.Profile()
+        host.enable()
+        counted("warm", lambda: eng.collect(flow))
+        host.disable()
+        row["host_cum_ms"], row["host_self_ms"] = _own_and_self(
+            _host_rows(pstats.Stats(host).stats))
+        print("engines " + json.dumps({**row, "match": True}))
+
+    make, has_refine, _ = queries["Q7-agg"]
+    flow = make()
+    parts = max(ENGINE_PARTITIONS)
+    eng = AdHocEngine(cat, backend=TorchBackend(), partitions=parts)
+    base = counted("cold", lambda: eng.collect(flow))[0]
+    row = {"sub": "partition_fault", "query": "Q7-agg", "partitions": parts,
+           "failing_partition": FAILING_PARTITION}
+    for run in ("warm", "warm2"):
+        fp = FaultPlan(fail_once={("partition", FAILING_PARTITION)})
+        res, lc, kc, ms = counted(run, lambda: eng.collect(flow,
+                                                           fault_plan=fp))
+        rerouted = PartitionPlan(reroute_partitions(
+            partition_shards(res.plan.shard_ids, parts).parts,
+            [FAILING_PARTITION]))
+        need = {"run_wave_fused": rerouted.wave_dispatches(WAVE),
+                "merge_partials": 1}
+        where = f"partition_fault {run}"
+        if lc != need or res.profile.retries != 1 or res.coverage != 1.0:
+            fail(f"{where}: dispatches {lc} (expected {need}), retries "
+                 f"{res.profile.retries}, coverage {res.coverage}")
+        wave_kernels(where, kc, need["run_wave_fused"], has_refine)
+        identical(where, res, base)
+        row[f"{run}_ms"] = ms
+        row["dispatches"] = lc
+    print("engines " + json.dumps({**row, "match": True}))
+
+    # -------------------------------------------------------------- hll
+    obs, trips = cat.get("SpeedObservations"), cat.get("Trips")
+    hll_flows = {"obs-hour": (fdb("SpeedObservations").aggregate(
+        group(P.hour).approx_distinct("n_roads", expr=P.road_id)), obs,
+        (1,))}
+    hll_flows["trips-ids"] = (fdb("Trips").distinct_approx(P.id), trips,
+                              (1,) + ENGINE_PARTITIONS)
+    for fname, (flow, db, part_list) in hll_flows.items():
+        want = oracle.run(flow).to_records()
+        be = TorchBackend()
+        row = {"sub": "hll", "flow": fname, "groups": len(want)}
+        for parts in part_list:
+            eng = AdHocEngine(cat, backend=be, partitions=parts)
+            times = []
+            for run in ["cold"] + ["warm"] * WARM_RUNS + ["capture"]:
+                capturing[0] = run == "capture"
+                res, lc, kc, ms = counted(run, lambda: eng.collect(flow))
+                capturing[0] = False
+                finalizes = sum(1 for sid in res.plan.shard_ids
+                                if db.shards[sid].n)
+                where = f"hll {fname} P={parts} {run}"
+                if lc.get("segment_hll") != finalizes:
+                    fail(f"{where}: segment_hll launched "
+                         f"{lc.get('segment_hll')} times, expected one a "
+                         f"finalize ({finalizes})")
+                if res.to_records() != want:
+                    fail(f"{where}: estimates differ from the oracle's")
+                if run == "warm":
+                    times.append(ms)
+            row[f"P{parts}_warm_ms"] = median(times)
+            row[f"P{parts}_dispatches"] = lc
+        row.update(busy(lambda: eng.collect(flow)))
+        print("engines " + json.dumps({**row, "match": True}))
+
+    # the registers themselves: one call over all 400,000 rows of the
+    # per-hour sketch against the numpy oracle's
+    p = HyperLogLog().p
+    codes = np.concatenate([sh.batch["hour"].values for sh in obs.shards])
+    roads = np.concatenate([sh.batch["road_id"].values for sh in obs.shards])
+    idx, rank = hll_register_rows(hash_values(roads), p)
+    capturing[0] = True
+    got = TorchBackend().segment_hll(codes, idx, rank, 24, 1 << p)
+    capturing[0] = False
+    if got.tobytes() != NumpyBackend().segment_hll(codes, idx, rank, 24,
+                                                   1 << p).tobytes():
+        fail("hll: registers over all SpeedObservations differ from the "
+             "oracle's")
+    print("engines " + json.dumps({
+        "sub": "hll_registers", "rows": int(codes.size), "groups": 24,
+        "registers": 1 << p, "match": True}))
+
+    merge.merge_partials, fused.segment_hll = originals
+    out = {}
+    if "segment_hll" in inputs:
+        ids, regs, groups = inputs["segment_hll"][1]
+        n, m = regs.shape
+        out["segment_hll"] = (inputs["segment_hll"][1],
+                              8 * n + n * m + groups * m, n * m)
+    if "merge_partials" in inputs:
+        args = inputs["merge_partials"][1]
+        s, k, g = args[0].shape
+        out["merge_partials"] = (args, 40 * s * k * g + s * g
+                                 + 40 * k * g + g, 5 * s * k * g + s * g)
+    return out
 
 
 def segment_entry(torch, captured, reps, measure, segment_case,

@@ -208,10 +208,10 @@ class Flow:
 
     def to_dataset(self, features, target, engine=None, **kw):
         """Materialize this flow as ML training data (paper §5).  The
-        training path is not ported yet (ROADMAP.md, queue A item 9)."""
+        training path is not ported yet (ROADMAP.md, queue A item A9)."""
         raise NotImplementedError(
             "to_dataset() needs the training path, which the port has "
-            "not reached yet (ROADMAP.md, queue A item 9)")
+            "not reached yet (ROADMAP.md, queue A item A9)")
 
     # -- materialization ------------------------------------------------------
     def collect(self, engine=None, **kw):

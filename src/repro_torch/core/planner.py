@@ -514,8 +514,8 @@ class PartitionPlan:
 
     The partition layer sits between the planner (which enumerates and
     prunes ``Plan.shard_ids``) and the wave scheduler: each partition's
-    shards are waved and dispatched independently (device-local under a
-    mesh axis on the torch backend), and the per-shard segment-aggregate
+    shards are waved and dispatched independently (one after another on
+    the torch backend's one card), and the per-shard segment-aggregate
     states are combined by a single ``merge_partials`` tail.  Partitions
     are contiguous slices of the pruned shard list, so flattening the
     per-partition results in partition order recovers global shard order
@@ -564,11 +564,9 @@ def partition_shards(shard_ids: Sequence[int], p: int) -> PartitionPlan:
 
 def num_partitions(spec: Optional[int] = None, backend: Any = None) -> int:
     """Resolve the execution partition count: explicit engine arg >
-    ``REPRO_EXEC_PARTITIONS`` > 1.  Every backend defaults to a single
-    partition: the device mesh that would size P is not ported yet
-    (ROADMAP.md, queue A item 6), and at P=1 no ``merge_partials``
-    combine runs."""
-    del backend
+    ``REPRO_EXEC_PARTITIONS`` > the backend's CUDA device count (batched
+    backends only — the host oracle, and a backend on the CPU, default to
+    a single partition)."""
     if spec is not None:
         return max(1, int(spec))
     import os
@@ -576,4 +574,8 @@ def num_partitions(spec: Optional[int] = None, backend: Any = None) -> int:
     env = os.environ.get(PARTITIONS_ENV, "").strip()
     if env:
         return max(1, int(env))
+    if backend is not None and getattr(backend, "batched_dispatch", False):
+        from ..launch.mesh import default_exec_partitions
+
+        return default_exec_partitions(backend)
     return 1

@@ -1,6 +1,6 @@
 """Data substrate: synthetic world generator.
 
-(The training pipelines are not ported yet: ROADMAP.md, queue A item 9.)"""
+(The training pipelines are not ported yet: ROADMAP.md, queue A item A9.)"""
 from .synthetic import (generate_world, roads_schema, observations_schema,
                         route_requests_schema, trips_schema, city_region,
                         CITIES, BAY_AREA)

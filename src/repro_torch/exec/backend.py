@@ -492,11 +492,6 @@ class NumpyBackend(ExecBackend):
 # torch — the hand-written CUDA kernels (plain PyTorch versions on the CPU)
 # --------------------------------------------------------------------------
 
-def _not_ported(op: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"TorchBackend.{op} is not ported yet ({where})")
-
-
 class TorchBackend(ExecBackend):
     """Routes the hot loop through :mod:`repro_torch.kernels.ops`: the
     fused wave (``run_wave_fused``), the wave-batched ops a declined wave
@@ -506,7 +501,10 @@ class TorchBackend(ExecBackend):
     ``compact_mask``, ``segment_aggregate``, ``refine_tracks``) and the
     query server's coalesced ops (``probe_shards_multi``,
     ``refine_tracks_multi``, ``run_wave_fused_multi``) launch the
-    hand-written CUDA kernels on ``device``.
+    hand-written CUDA kernels on ``device``.  The partition layer's
+    combine (``merge_partials``) and the grouped sketch build
+    (``segment_hll``) are plain PyTorch ops on ``device``, as the JAX
+    package's are plain jnp.
 
     ``device`` defaults to ``"cuda"``; without a CUDA device the
     constructor raises rather than carry on elsewhere.  ``device="cpu"``
@@ -1398,20 +1396,86 @@ class TorchBackend(ExecBackend):
         if agg is not None:
             self._agg_stacks(shards, agg, n_max)
 
-    # ------------------------------------------- not ported in this slice
+    # ------------------------------------------------------ sketch aggregation
+    def segment_hll(self, codes, reg_idx, ranks, num_groups: int,
+                    num_regs: int) -> np.ndarray:
+        """One ``segment_hll`` dispatch: the (group, register) pair folds
+        into a composite int64 segment id and the rank plane max-reduces
+        on the device (``scatter_reduce_`` amax — an exact uint8 max, so
+        the result is byte-equal to the host scatter oracle)."""
+        codes = np.asarray(codes, dtype=np.int64)
+        reg_idx = np.asarray(reg_idx, dtype=np.int64)
+        composite = np.where(codes >= 0, codes * num_regs + reg_idx, -1)
+        out = _ops.segment_hll(
+            self._up(composite),
+            self._up(np.asarray(ranks, dtype=np.uint8)[:, None]),
+            num_groups * num_regs)
+        return out[:, 0].cpu().numpy().reshape(num_groups, num_regs)
+
+    # ------------------------------------------------------ partition layer
     def partition_context(self, part: int, num_parts: int):
-        """The engines enter this around every wave.  One partition needs
-        nothing placed; P>1 needs the partition layer (not ported)."""
-        if num_parts <= 1:
-            return contextlib.nullcontext()
-        raise _not_ported("partition_context", "ROADMAP.md queue A item 6")
+        """The engines enter this around each partition's waves.  It
+        places nothing, for any P: every buffer of the backend lives in
+        its one ``DeviceCache`` on ``self.device``, so on one card the
+        partitions' waves run one after another there, and with more than
+        one card they still run on this one.  Placing partitions on their
+        own cards (``torch.distributed``) is ROADMAP A6's later step."""
+        del part, num_parts
+        return contextlib.nullcontext()
 
     def merge_partials(self, states, minmax=(), parts=None):
-        raise _not_ported("merge_partials", "ROADMAP.md queue A item 6")
-
-
-    def segment_hll(self, codes, reg_idx, ranks, num_groups, num_regs):
-        raise _not_ported("segment_hll", "ROADMAP.md queue A item 5")
+        """One-dispatch device combine of the per-shard segment states:
+        align every state to the sorted union key space on the host,
+        stack ``[S, K, G]`` planes once (identity fill: 0 for
+        count/sum/sum_sq, ±inf for min/max, False for presence), upload
+        them to ``self.device`` and make **one** ``ops.merge_partials``
+        call, which accumulates in states order — bit-equal to the numpy
+        oracle (``kernels/merge.py``).  With no live state it still makes
+        one combine call, so the launch contract stays exact.  ``parts``
+        (per-partition state counts) is layout only: one device holds
+        every state."""
+        del parts
+        states = [(np.asarray(k), list(slots)) for k, slots in states]
+        live = [st for st in states if len(st[0]) and st[1]]
+        if not live:
+            zero = torch.zeros((1, 1, 0), dtype=torch.float64,
+                               device=self.device)
+            _ops.merge_partials(zero.to(torch.int64), zero, zero, zero,
+                                zero, torch.zeros((1, 0), dtype=torch.bool,
+                                                  device=self.device))
+            return np.zeros(0, np.int64), []
+        union = np.unique(np.concatenate([k for k, _ in live]))
+        n_states = len(live)
+        n_slots = max(len(slots) for _, slots in live)
+        mm = tuple(minmax)
+        mm = mm + (False,) * (n_slots - len(mm))
+        g = union.size
+        cnt = np.zeros((n_states, n_slots, g), np.int64)
+        s = np.zeros((n_states, n_slots, g), np.float64)
+        s2 = np.zeros((n_states, n_slots, g), np.float64)
+        mn = np.full((n_states, n_slots, g), np.inf)
+        mx = np.full((n_states, n_slots, g), -np.inf)
+        msk = np.zeros((n_states, g), bool)
+        for si, (keys, slots) in enumerate(live):
+            idx = np.searchsorted(union, keys)
+            for k, st in enumerate(slots):
+                cnt[si, k, idx] = np.asarray(st[0], np.int64)
+                s[si, k, idx] = np.asarray(st[1], np.float64)
+                s2[si, k, idx] = np.asarray(st[2], np.float64)
+                if len(st) >= 5:
+                    mn[si, k, idx] = np.asarray(st[3], np.float64)
+                    mx[si, k, idx] = np.asarray(st[4], np.float64)
+            msk[si, idx] = np.asarray(slots[0][0]) > 0
+        out = _ops.merge_partials(*(self._up(a) for a in
+                                    (cnt, s, s2, mn, mx, msk)))
+        o_cnt, o_s, o_s2, o_mn, o_mx = [x.cpu().numpy() for x in out[:5]]
+        merged = []
+        for k in range(n_slots):
+            slot = (o_cnt[k], o_s[k], o_s2[k])
+            if mm[k]:
+                slot = (*slot, o_mn[k], o_mx[k])
+            merged.append(slot)
+        return union, merged
 
 
 # --------------------------------------------------------------------------

@@ -401,8 +401,8 @@ def run_wave_task(db: FDb, plan: Plan, sids: Sequence[int],
 def resolve_partition_plan(partitions, backend, plan: Plan,
                            fault_plan: Optional[FaultPlan] = None,
                            profile=None) -> PartitionPlan:
-    """Resolve P (engine arg > ``REPRO_EXEC_PARTITIONS`` > mesh size for
-    batched backends) and assign the plan's pruned shard list to P
+    """Resolve P (engine arg > ``REPRO_EXEC_PARTITIONS`` > CUDA device
+    count for batched backends) and assign the plan's pruned shard list to P
     contiguous partitions.  A partition whose FaultPlan check trips
     (stage ``"partition"``) is drained *before* dispatch and its shards
     rerouted across the surviving partitions
@@ -418,9 +418,12 @@ def resolve_partition_plan(partitions, backend, plan: Plan,
             except TaskFailure:
                 failed.append(pi)
         if failed:
-            raise NotImplementedError(
-                "partition reroute (launch.elastic) is not ported yet "
-                "(ROADMAP.md, queue A item 6)")
+            from ..launch.elastic import reroute_partitions
+
+            rerouted = reroute_partitions(pplan.parts, failed)
+            if rerouted != pplan.parts and profile is not None:
+                profile.retries += len(failed)
+            pplan = PartitionPlan(rerouted)
     return pplan
 
 

@@ -52,7 +52,7 @@ from . import refine as _refine
 from . import segment_agg as _seg
 
 __all__ = ["run_wave_fused", "run_wave_fused_multi", "postings_bitmap",
-           "first_hit_before", "record_stage", "stage_times",
+           "segment_hll", "first_hit_before", "record_stage", "stage_times",
            "reset_stage_times"]
 
 
@@ -328,3 +328,33 @@ def postings_bitmap(ids, t_min, t_max, t0: float, t1: float,
     shifts = torch.arange(32, dtype=torch.int64, device=dev)
     words = (keep.reshape(nw, 32).to(torch.int64) << shifts).sum(dim=1)
     return words.to(torch.int32)          # low 32 bits: the uint32 word
+
+
+# --------------------------------------------------------------------------
+# Segment HLL — per-group HyperLogLog register max behind the seam
+# --------------------------------------------------------------------------
+
+def segment_hll(group_ids, regs, num_groups: int) -> torch.Tensor:
+    """Per-group HLL register max: ``group_ids`` [N] (< 0 masked out,
+    ≥ ``num_groups`` dropped) × ``regs`` [N, M] uint8 register rows →
+    [num_groups, M] maxed planes.  The identity is 0 — an empty HLL
+    register — so groups with no rows come back as empty sketches.
+    Register max is the HLL merge: commutative and idempotent, so the
+    result does not depend on row order or partitioning.  The JAX package
+    lowers this to a jitted ``jax.ops.segment_max`` (no Pallas kernel), so
+    it is one ``scatter_reduce_`` (amax) into a zero [G·M] plane here,
+    on the inputs' device; the composite index is int64 (G·M passes 2³¹
+    at 524,288 groups of 4,096 registers)."""
+    m = int(regs.shape[1])
+    dev = regs.device
+    if num_groups <= 0:
+        return torch.zeros((0, m), dtype=torch.uint8, device=dev)
+    gid = group_ids.to(torch.int64)
+    valid = (gid >= 0) & (gid < num_groups)
+    gid = torch.where(valid, gid, 0)
+    r = torch.where(valid[:, None], regs, 0)
+    idx = gid[:, None] * m + torch.arange(m, dtype=torch.int64, device=dev)
+    out = torch.zeros(num_groups * m, dtype=torch.uint8, device=dev)
+    out.scatter_reduce_(0, idx.reshape(-1), r.reshape(-1), reduce="amax",
+                        include_self=True)
+    return out.view(num_groups, m)

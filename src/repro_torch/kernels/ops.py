@@ -23,6 +23,7 @@ from . import bitset as _bitset
 from . import compact as _compact
 from . import flash_attention as _fa
 from . import fused as _fused
+from . import merge as _merge
 from . import refine as _refine
 from . import segment_agg as _seg
 from . import ssm_scan as _ssm
@@ -30,7 +31,8 @@ from . import ssm_scan as _ssm
 __all__ = ["bitmap_binary", "bitmap_intersect", "bitmap_intersect_batched",
            "compact", "compact_batched", "segment_agg", "refine_tracks",
            "refine_tracks_batched", "refine_tracks_multi", "run_wave_fused",
-           "run_wave_fused_multi", "postings_bitmap", "flash_attention",
+           "run_wave_fused_multi", "postings_bitmap", "segment_hll",
+           "merge_partials", "flash_attention",
            "ssm_scan", "launch_counts", "reset_launch_counts",
            "record_launch"]
 
@@ -174,6 +176,25 @@ def postings_bitmap(ids, t_min, t_max, t0: float, t1: float, n_docs: int):
     plain jnp) — one logical dispatch."""
     record_launch("postings_bitmap")
     return _fused.postings_bitmap(ids, t_min, t_max, t0, t1, n_docs)
+
+
+def segment_hll(group_ids, regs, num_groups: int):
+    """Per-group HyperLogLog register max: group_ids [N] (< 0 masked out)
+    × regs [N, M] uint8 register rows → [num_groups, M] maxed planes.
+    Plain PyTorch, as the JAX package's is plain jnp, but one logical
+    dispatch all the same."""
+    record_launch("segment_hll")
+    return _fused.segment_hll(group_ids, regs, num_groups)
+
+
+def merge_partials(cnt, s, s2, mn, mx, msk):
+    """Cross-partition combine of aligned segment-aggregate state stacks
+    [S, K, G] (counts/sums/sum-squares in states order, min/max planes
+    element-wise, presence masks OR) — one logical dispatch: the
+    partitioned launch contract is Σ_p ⌈shards_p/wave⌉ fused dispatches
+    plus exactly one combine per aggregated query."""
+    record_launch("merge_partials")
+    return _merge.merge_partials(cnt, s, s2, mn, mx, msk)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,

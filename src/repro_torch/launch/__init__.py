@@ -1,1 +1,3 @@
-"""Launch layer: the serving driver (``launch.serve``)."""
+"""Launch layer: the serving entry point (``launch.serve``), the partition
+count's device default (``launch.mesh``) and partition-axis rerouting
+(``launch.elastic``)."""

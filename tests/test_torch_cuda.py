@@ -869,3 +869,132 @@ def test_server_on_card(card):
     assert all(r.done and len(r.out) == 5 for r in reqs)
     assert _build.kernel_launches() == {"flash_attention": 2 * 2,
                                         "ssm_scan": 2 * 14}
+
+
+# ------------------------------------- segment_hll, merge_partials, engines
+
+@pytest.mark.parametrize("n,g,m,masked", [(0, 3, 16, 0.0), (50, 7, 16, 0.3),
+                                          (20000, 24, 4096, 0.05),
+                                          (3000, 600_000, 4096, 0.1)])
+def test_segment_hll_on_card_matches_cpu(card, n, g, m, masked):
+    """The scatter-max on the card against the same function on the CPU,
+    byte for byte (uint8 amax); the last case's composite index G·M
+    passes 2³¹."""
+    rng = np.random.default_rng(n + g)
+    ids = rng.integers(0, g, n)
+    if n:
+        ids[0] = g - 1
+    ids[rng.random(n) < masked] = -1
+    regs = rng.integers(0, 40, (n, 1 if g * m > 2 ** 31 else m)) \
+        .astype(np.uint8)
+    gm = g if regs.shape[1] == m else g * m
+    if regs.shape[1] == 1:
+        ids = np.where(ids >= 0, ids * m + rng.integers(0, m, n), -1)
+    t_ids, t_regs = torch.from_numpy(ids), torch.from_numpy(regs)
+    got = ops.segment_hll(t_ids.to(card), t_regs.to(card), gm)
+    want = ops.segment_hll(t_ids, t_regs, gm)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("s,k,g", [(1, 1, 1), (20, 1, 80_000), (4, 3, 17),
+                                   (2, 1, 0)])
+def test_merge_partials_on_card_matches_cpu(card, s, k, g):
+    """The in-order combine on the card against the CPU, bit for bit."""
+    rng = np.random.default_rng(s * 10 + g)
+    cnt = rng.integers(0, 6, (s, k, g)).astype(np.int64)
+    sm = rng.normal(0.0, 1e3, (s, k, g)) * (cnt > 0)
+    s2 = rng.random((s, k, g)) * 1e6 * (cnt > 0)
+    mn = np.where(cnt > 0, rng.normal(0, 50, (s, k, g)), np.inf)
+    mx = np.where(cnt > 0, mn + 1.0, -np.inf)
+    msk = cnt[:, 0, :] > 0
+    host = [torch.from_numpy(a) for a in (cnt, sm, s2, mn, mx, msk)]
+    got = ops.merge_partials(*(t.to(card) for t in host))
+    want = ops.merge_partials(*host)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def _engine_world():
+    w = generate_world(scale=2.0, seed=1)
+    cat = Catalog(server_slots=16)
+    cat.register(build_fdb("Trips", w["trips_schema"], w["trips"],
+                           num_shards=10))
+    cat.register(build_fdb("SpeedObservations", w["observations_schema"],
+                           w["observations"], num_shards=20))
+    return cat
+
+
+def _close(got, want):
+    assert len(got) == len(want) > 0
+    key = lambda r: tuple(v for v in r.values() if isinstance(v, int))
+    for g, r in zip(sorted(got, key=key), sorted(want, key=key)):
+        assert g.keys() == r.keys()
+        for k, v in r.items():
+            if isinstance(v, float):
+                assert abs(g[k] - v) <= 1e-6 * abs(v) + 1e-9
+            else:
+                assert g[k] == v
+
+
+def test_partitions_on_one_card(card):
+    """P = 4 on one card: selections byte-identical to P = 1 there,
+    aggregates float64-identical, Σ_p ⌈shards_p/8⌉ fused dispatches and
+    one merge combine; aggregates within float32 staging of the oracle."""
+    from repro_torch.core import BETWEEN, P, fdb, group, proto
+    from repro_torch.core.planner import partition_shards
+    from repro_torch.exec import AdHocEngine
+    cat = _engine_world()
+    flows = {
+        "agg": fdb("SpeedObservations").find(BETWEEN(P.hour, 7, 10))
+        .aggregate(group(P.road_id).count("n").avg(a=P.speed)
+                   .std_dev(sd=P.speed)),
+        "select": fdb("SpeedObservations").find(BETWEEN(P.hour, 8, 9))
+        .map(lambda p: proto(road_id=p.road_id, speed=p.speed))}
+    be = TorchBackend()
+    oracle = AdHocEngine(cat, backend=NumpyBackend())
+    for name, flow in flows.items():
+        base = AdHocEngine(cat, backend=be, partitions=1).collect(flow)
+        ops.reset_launch_counts()
+        got = AdHocEngine(cat, backend=be, partitions=4).collect(flow)
+        pp = partition_shards(got.plan.shard_ids, 4)
+        want = {"run_wave_fused": pp.wave_dispatches(8)}
+        if name == "agg":
+            want["merge_partials"] = 1
+        assert ops.launch_counts() == want
+        assert got.batch.paths() == base.batch.paths()
+        for p in base.batch.paths():
+            assert got.batch[p].values.tobytes() == \
+                base.batch[p].values.tobytes(), (name, p)
+        _close(got.to_records(), oracle.collect(flow).to_records())
+
+
+def test_flume_speculation_on_card(card, tmp_path):
+    """Flume on the card with a straggling shard: speculative backups run
+    the same shard task on a second thread while the other tasks run
+    theirs (concurrent launches through the kept scan and intersect
+    state); records match the oracle, and a re-run of the job launches
+    nothing."""
+    from repro_torch.core import P, fdb, group
+    from repro_torch.exec import AdHocEngine, FaultPlan, FlumeEngine
+    from repro_torch.tess import Tesseract
+    cat = _engine_world()
+    day = 2 * 86400.0
+    flow = fdb("Trips").tesseract(
+        Tesseract(city_region("SF"), day + 6 * 3600, day + 12 * 3600)
+        .also(city_region("Berkeley"), day + 6 * 3600, day + 14 * 3600)
+    ).aggregate(group(P.day).count("n").avg(d=P.duration_s))
+    want = AdHocEngine(cat, backend=NumpyBackend()).collect(flow)
+    fl = FlumeEngine(cat, ckpt_dir=str(tmp_path), backend=TorchBackend(),
+                     speculation=True, speculation_factor=2.0)
+    res = fl.collect(flow, fault_plan=FaultPlan(
+        straggle={("server", 0): 0.5, ("server", 3): 0.5}))
+    assert fl.stats["speculative_launched"] >= 1
+    _close(res.to_records(), want.to_records())
+    ops.reset_launch_counts()
+    _build.reset_kernel_launches()
+    fl2 = FlumeEngine(cat, ckpt_dir=str(tmp_path), backend=TorchBackend())
+    again = fl2.collect(flow, job_id=fl._job_id(flow))
+    assert again.to_records() == res.to_records()
+    assert ops.launch_counts() == {} and _build.kernel_launches() == {}
