@@ -58,6 +58,25 @@ around it: it imports nothing of the JAX package.  Phases:
    registers byte-equal to the oracle's, one ``segment_hll`` a finalize;
    each sub-phase's warm wall time, launches and busy share on an
    ``engines`` line;
+3g. train (``train`` lines, no kernel of the port launched in a train
+   step): time-to-trained-model as ``examples/ml_workflow.py`` runs it on
+   the same world with ``Roads`` registered — ``to_dataset`` over
+   SpeedObservations months 1–4 (hour, dow and the road's speed limit
+   through a ``Roads`` lookup → speed) through ``AdHocEngine`` on the
+   card, byte-equal to the numpy oracle's selection; ``fit(hidden=64,
+   depth=2, steps=400, lr=2e-3, batch=1024)`` on the card, its loss curve
+   within 1e-4 of the same fit on the CPU (the same initial params and
+   index stream, TF32 off) and its idle share under the profiler;
+   ``model_apply`` over months 5–6 with an MSE aggregate (RMSE must beat
+   the targets' standard deviation); an annotation ``save`` and a model
+   ``save``/``load`` predicting the same values.  Then ``launch.train.
+   train_loop`` on SmolLM-360M at full width and depth (float32 params,
+   ``remat="full"``, batch 8 × 512 tokens from ``TokenPipeline``, 6 steps,
+   checkpoints every 3), a resume from step 3 repeating steps 3–5 and the
+   final params and optimizer state bit for bit, 0 flash_attention /
+   ssm_scan launches; three reduced Jamba steps (float32 activations) on
+   the card against the CPU from the same params; ``geo.denoise.snap_path`` for 1,000 waypoints × 2,000 segments
+   on the card equal to the CPU's path;
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the largest shape the main path gave it (both segment_agg branches —
    the shared one must give the same bits from two calls, and the library
@@ -85,7 +104,8 @@ around it: it imports nothing of the JAX package.  Phases:
    PyTorch's own device operations as recorded.
 
 Every main-path run sets the launch counters to 0 just before it and
-reads them just after; a kernel's ``launches`` is the sum over phases 3-3f.
+reads them just after; a kernel's ``launches`` is the sum over phases
+3-3g.  Each phase prints its seconds.
 ``bitset_binary`` (row 8) is on no path of the engines (only
 ``ops.bitmap_binary`` reaches it), so it reports 0 launches and is held
 and timed in phase 4 only.
@@ -245,6 +265,14 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa_kernel
     from repro_torch.tess import Tesseract
 
+    phase_t0 = [time.perf_counter()]
+
+    def phase_done(name):
+        """Print the seconds since the last phase ended."""
+        now = time.perf_counter()
+        print(f"phase {name}: {now - phase_t0[0]:.1f} s")
+        phase_t0[0] = now
+
     # ---------------------------------------------------------- 1. device
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
@@ -262,6 +290,7 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    phase_done("1-2 device and build")
 
     # ----------------------------------------------------- 3. end to end
     t0 = time.perf_counter()
@@ -467,6 +496,8 @@ def main() -> int:
                 fail(f"{where}: {k} launched {kc.get(k, 0)} times, expected "
                      f"{n}")
 
+    phase_done("3 e2e")
+
     # ------------------------------------------------------------ 3b. serve
     pairs = [(a, b) for a, bs in NEIGHBORS.items() for b in bs][:SERVE_BATCH]
 
@@ -551,6 +582,8 @@ def main() -> int:
         fail(f"refine_tracks_multi launched {refine_waves} times over the "
              "Trips batches' runs, expected one a wave")
 
+    phase_done("3b serve")
+
     # ----------------------------------------------------------- 3c. filter
     sf = city_region("SF")
     q2_agg = group(P.road_id).avg(d=P.speed).std_dev(sd=P.speed).count("n")
@@ -580,6 +613,7 @@ def main() -> int:
             row[f"{run}_ms"] = ms
             row[f"{run}_kernels"] = kc
         print("filter " + json.dumps({**row, "match": True}))
+    phase_done("3c filter")
 
     # ------------------------------------------------------------ 3d. retry
     for qname in ("Q7-agg", "Q1"):
@@ -608,13 +642,20 @@ def main() -> int:
         print("retry " + json.dumps({**row, "match": True}))
 
     recording[0] = None
+    phase_done("3d retry")
 
     # --------------------------------------------------------------- 3e. lm
     lm_inputs = lm_phase(torch, np, totals)
+    phase_done("3e lm")
 
     # ---------------------------------------------------------- 3f. engines
     engine_inputs = engines_phase(torch, np, cat, queries, oracle, counted,
                                   check_close, need_launches)
+    phase_done("3f engines")
+
+    # ------------------------------------------------------------ 3g. train
+    train_phase(torch, np, world, cat, counted)
+    phase_done("3g train")
     for mod, name in wrappers:
         setattr(mod, name, originals[name])
 
@@ -1030,9 +1071,12 @@ def main() -> int:
                "bound_ms": b_ms, "bound_by": b_by}
         print("engine_ops " + json.dumps(row))
 
+    phase_done("4 kernels")
     print("launch_path " + json.dumps(launch_path(torch, np)))
+    phase_done("4b launch_path")
     profile_queries(torch, queries, sessions)
     profile_serve(torch, batches, serve_backend, cat)
+    phase_done("5 profile")
     print(smi)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
@@ -1699,6 +1743,383 @@ def lm_phase(torch, np, totals):
     if inputs["ssm_scan"] is None or len(inputs["flash_attention"]) != 2:
         fail("lm: the kernels' inputs were not recorded")
     return inputs
+
+
+#: phase 3g: the §5 loop (examples/ml_workflow.py) and the LM train step
+TTM_FIT = {"hidden": 64, "depth": 2, "steps": 400, "lr": 2e-3, "batch": 1024}
+#: card against the CPU, TF32 off: float32 sums in another order
+TTM_LOSS_RTOL = 1e-4
+LM_TRAIN = {"steps": 6, "batch": 8, "seq": 512, "ckpt_every": 3}
+#: three reduced Jamba steps, card against CPU from the same float32
+#: params (float32 activations): each step's loss and grad norm, so a wrong
+#: update shows in the next step's loss; the first step's gradients, each
+#: leaf within 2^-8 of its largest |element|, because the Mamba path stages
+#: its scan inputs in bf16 on both devices and a float32 ulp upstream can
+#: flip one bf16 rounding.  AdamW's first update is g / (|g| + eps) ≈ ±1
+#: whatever |g|: an element whose gradient is above STEP_SIGNAL (4 × the
+#: gradient bound of its leaf, and 100 × eps after clipping) has its sign
+#: fixed by the gradient check and must move as on the CPU, within
+#: STEP_PARAM_ATOL; one whose gradient is float32 noise may move by ±lr
+#: either way, so the rest are held within 2·Σ lr
+STEP_LOSS_RTOL, STEP_GNORM_RTOL, STEP_GRAD_REL = 1e-4, 1e-3, 2.0 ** -8
+STEP_SIGNAL, STEP_PARAM_ATOL, STEP_COUNT = 4 * STEP_GRAD_REL, 1e-5, 3
+SNAP_SHAPE = (1000, 2000)          # waypoints × road segments
+
+
+def train_phase(torch, np, world, cat, counted):
+    """Phase 3g: the training paths on the card (module docstring).  Every
+    run is counted (launch counts 0 just before, read just after); the
+    train steps and the geo Viterbi launch none of the port's kernels."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.core import BETWEEN, P, fdb, group, proto
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.exec import AdHocEngine, NumpyBackend, TorchBackend
+    from repro_torch.fdb import build_fdb
+    from repro_torch.geo.denoise import snap_path
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import train_loop
+    from repro_torch.ml.integration import MLPRegressor
+    from repro_torch.ml.model import ModelBundle, TrainConfig
+    from repro_torch.ml.optim import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def no_launches(where, kc):
+        if any(kc.values()):
+            fail(f"train {where}: kernels launched {kc}, expected none")
+
+    # ------------------------------------------- time to trained model
+    t_sub = time.perf_counter()
+    cat.register(build_fdb("Roads", world["roads_schema"], world["roads"],
+                           num_shards=5))
+    engine = AdHocEngine(cat, backend=TorchBackend(device="cuda"))
+    oracle = AdHocEngine(cat, backend=NumpyBackend())
+    feats = ["hour", "dow", "sl"]
+
+    def roads(eng):
+        return (fdb("Roads").map(lambda p: proto(rid=p.id, sl=p.speed_limit))
+                .collect(eng).to_dict("rid"))
+
+    def select(eng, roads_tbl):
+        return (fdb("SpeedObservations").find(BETWEEN(P.month, 1, 4))
+                .to_dataset(features={"hour": P.hour * 1.0,
+                                      "dow": P.dow * 1.0,
+                                      "sl": roads_tbl[P.road_id].sl},
+                            target=P.speed, engine=eng))
+
+    row = {"sub": "time_to_trained_model", "fit": TTM_FIT}
+    roads_tbl, _, kc, row["roads_ms"] = counted("roads", lambda: roads(engine))
+    ds, _, kc, row["time_to_training_data_ms"] = counted(
+        "cold", lambda: select(engine, roads_tbl))
+    row["selection_kernels"] = kc
+    for k in ("bitmap_intersect_batched", "compact_batched"):
+        if kc.get(k, 0) < 1:
+            fail(f"train selection: {k} never launched ({kc})")
+    _, _, _, row["time_to_training_data_warm_ms"] = counted(
+        "warm", lambda: select(engine, roads_tbl))
+    want = select(oracle, roads(oracle))
+    if ds.features.tobytes() != want.features.tobytes() or \
+            ds.targets.tobytes() != want.targets.tobytes():
+        fail("train: the card's training data differ from the numpy "
+             "oracle's")
+    row.update(rows_selected=len(ds), features=ds.feature_names,
+               oracle_byte_equal=True)
+    (model, losses), _, kc, row["fit_ms"] = counted(
+        "fit", lambda: ds.fit(device="cuda", **TTM_FIT))
+    no_launches("fit", kc)
+    row["time_to_trained_model_ms"] = (row["time_to_training_data_ms"]
+                                       + row["fit_ms"])
+    row["loss_first_last"] = [losses[0], losses[-1]]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        fail(f"train: the fit did not learn: {row['loss_first_last']}")
+    cpu = MLPRegressor(ds.num_features, hidden=TTM_FIT["hidden"],
+                       depth=TTM_FIT["depth"], device="cpu")
+    cpu_losses = cpu.train(ds.features, ds.targets,
+                           **{k: TTM_FIT[k] for k in ("steps", "lr",
+                                                      "batch")})
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    row["cpu_loss_max_rel"] = rel
+    row["cpu_loss_rtol"] = TTM_LOSS_RTOL
+    if not rel <= TTM_LOSS_RTOL:
+        fail(f"train: the card's loss curve is {rel:.3g} from the CPU's "
+             f"(bound {TTM_LOSS_RTOL})")
+    _build.reset_kernel_launches()       # _profiled reads the window
+    _, busy = _profiled(torch, lambda: counted("busy", lambda: ds.fit(
+        device="cuda", **TTM_FIT))[3])
+    row["fit_device_busy_ms"] = busy["device_busy_ms"]
+    row["fit_device_idle_share"] = busy["device_idle_share"]
+
+    col_model = model.as_column_model(feats)
+    eval_q = (fdb("SpeedObservations").find(BETWEEN(P.month, 5, 6))
+              .map(lambda p: proto(hour=p.hour * 1.0, dow=p.dow * 1.0,
+                                   sl=roads_tbl[p.road_id].sl,
+                                   speed=p.speed))
+              .model_apply(col_model, output="pred",
+                           hour=P.hour, dow=P.dow, sl=P.sl)
+              .map(lambda p: proto(err=(p.pred - p.speed)
+                                   * (p.pred - p.speed)))
+              .aggregate(group().avg(mse=P.err).count("n")))
+    res, _, kc, row["model_apply_ms"] = counted("eval",
+                                                lambda: engine.collect(eval_q))
+    row["eval_kernels"] = kc
+    rec = res.to_records()[0]
+    row.update(eval_rows=rec["n"], rmse=rec["mse"] ** 0.5,
+               target_sd=float(np.std(ds.targets)))
+    if not row["rmse"] < row["target_sd"]:
+        fail(f"train: RMSE {row['rmse']:.3f} does not beat the targets' "
+             f"standard deviation {row['target_sd']:.3f}")
+
+    annot_q = (fdb("Roads")
+               .map(lambda p: proto(rid=p.id, sl=p.speed_limit,
+                                    hour=p.speed_limit * 0.0 + 8.0,
+                                    dow=p.speed_limit * 0.0 + 2.0))
+               .model_apply(col_model, output="pred_speed",
+                            hour=P.hour, dow=P.dow, sl=P.sl))
+    db, _, kc, row["annotate_ms"] = counted(
+        "annotate", lambda: engine.save(annot_q, "RoadSpeedPredictions",
+                                        num_shards=4))
+    check, _, _, _ = counted("annotated", lambda: engine.collect(
+        fdb("RoadSpeedPredictions").aggregate(
+            group().avg(mean_pred=P.pred_speed).count("n"))))
+    check = check.to_records()[0]
+    if check["n"] != db.num_docs or not math.isfinite(check["mean_pred"]):
+        fail(f"train: annotated FDb {check} of {db.num_docs} roads")
+    row["annotated"] = {"roads": db.num_docs,
+                        "mean_pred": check["mean_pred"]}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_model_")
+    try:
+        model.save(tmp, feats)
+        probe = {"hour": np.arange(24.0), "dow": np.full(24, 2.0),
+                 "sl": np.full(24, 50.0)}
+        a = col_model.apply_columns(probe)
+        b = MLPRegressor.load(tmp, device="cuda").apply_columns(probe)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not np.array_equal(a, b):
+        fail("train: the reloaded model predicts differently")
+    row["save_load_equal"] = True
+    row["seconds"] = time.perf_counter() - t_sub
+    print("train " + json.dumps(row))
+
+    # ------------------------------------------------- LM train step
+    t_sub = time.perf_counter()
+    cfg = get_config("smollm_360m")
+    row = {"sub": "lm_train", "config": "smollm_360m",
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "param_count": cfg.params_count(), "param_dtype": "float32",
+           "remat": "full", **LM_TRAIN}
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        steps, marks = [], [None]
+
+        def on_step(step, m):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            steps.append({"step": step, "ms": (now - marks[0]) * 1e3,
+                          "loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "lr": float(m["lr"])})
+            marks[0] = time.perf_counter()
+
+        def run(resume):
+            steps.clear()
+            marks[0] = time.perf_counter()
+            return train_loop(cfg, reduced=False, steps=LM_TRAIN["steps"],
+                              batch=LM_TRAIN["batch"], seq=LM_TRAIN["seq"],
+                              ckpt_dir=ckpt,
+                              ckpt_every=LM_TRAIN["ckpt_every"],
+                              resume=resume, log_every=LM_TRAIN["steps"],
+                              device="cuda", print_fn=lambda *_: None,
+                              on_step=on_step)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (full_params, full_opt, _), _, kc, row["run_ms"] = counted(
+            "lm", lambda: run(False))
+        no_launches("lm", kc)
+        first = [dict(s) for s in steps]
+        row["peak_bytes"] = torch.cuda.max_memory_allocated()
+        row["param_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(full_params))
+        warm = sorted(s["ms"] for s in first[1:])
+        row["cold_step_ms"] = first[0]["ms"]
+        row["warm_step_ms"] = warm[len(warm) // 2]
+        row["tokens_per_s"] = (LM_TRAIN["batch"] * LM_TRAIN["seq"]
+                               / row["warm_step_ms"] * 1e3)
+        row["per_step"] = first
+        if not all(math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"])
+                   for s in first):
+            fail(f"train lm: non-finite losses {first}")
+        # the run "crashed" after its step-3 checkpoint
+        shutil.rmtree(Path(ckpt) / f"step-{LM_TRAIN['steps']:08d}")
+        (params, opt, _), _, kc, row["resume_run_ms"] = counted(
+            "lm", lambda: run(True))
+        no_launches("lm resume", kc)
+        again = steps[:]
+        k = LM_TRAIN["ckpt_every"]
+        # bit for bit: the step counter, every param and AdamW moment, and
+        # each resumed step's loss, grad norm and lr
+        same_state = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(params) + tree_leaves(opt),
+            tree_leaves(full_params) + tree_leaves(full_opt)))
+        del full_params, full_opt
+        row["resume"] = {"steps": [s["step"] for s in again],
+                         "losses": [s["loss"] for s in again],
+                         "adam_step": int(opt["adam"]["step"]),
+                         "state_equal": same_state}
+        def seen(rows):
+            return [(s["step"], s["loss"], s["grad_norm"], s["lr"])
+                    for s in rows]
+
+        if [s["step"] for s in again] != list(range(k, LM_TRAIN["steps"])) \
+                or seen(again) != seen(first[k:]) \
+                or row["resume"]["adam_step"] != LM_TRAIN["steps"] \
+                or not same_state:
+            fail(f"train lm: the resumed run does not repeat steps "
+                 f"{k}-{LM_TRAIN['steps'] - 1}: {row['resume']}")
+        row["flash_attention_launches"] = 0
+        row["ssm_scan_launches"] = 0
+        # one more step from the resumed state under the profiler: the
+        # device's busy share and its top operations
+        mb = ModelBundle(cfg, train_cfg=TrainConfig(
+            lr=1e-3, warmup=1, total_steps=LM_TRAIN["steps"],
+            loss_chunk=None, remat="full"), device="cuda")
+        step_fn = mb.make_train_step()
+        pipe = TokenPipeline(cfg.vocab_size, LM_TRAIN["batch"],
+                             LM_TRAIN["seq"], start_step=LM_TRAIN["steps"])
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in next(pipe).items()}
+        pipe.close()
+        prof_kc = []
+
+        def one():
+            t0 = time.perf_counter()
+            step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        def profiled_step():
+            ms, _, kc, _ = counted("lm profile", one)
+            prof_kc.append(kc)
+            return ms
+
+        _build.reset_kernel_launches()   # _profiled reads the window
+        wall, busy = _profiled(torch, profiled_step)
+        no_launches("lm profile", prof_kc[-1])
+        row["profiled_step"] = {"wall_ms": wall, **busy}
+        del params, opt
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t_sub
+    print("train " + json.dumps(row))
+
+    # ------------------------------- three reduced Jamba steps, card vs CPU
+    t_sub = time.perf_counter()
+    jcfg = replace(get_config("jamba_v0_1_52b").reduced(),
+                   act_dtype="float32")
+    tc = TrainConfig(warmup=1, total_steps=STEP_COUNT + 1, loss_chunk=16,
+                     remat="full")
+    rng = np.random.default_rng(0)
+    toks = [rng.integers(0, jcfg.vocab_size, (2, 64)).astype(np.int32)
+            for _ in range(STEP_COUNT)]
+    p0, out = None, {}
+    for dev in ("cuda", "cpu"):
+        mb = ModelBundle(jcfg, train_cfg=tc, device=dev)
+        if p0 is None:
+            p0 = mb.init_params(0)
+        batches = [{"tokens": torch.from_numpy(t).to(dev),
+                    "labels": torch.from_numpy(np.roll(t, -1, 1)).to(dev)}
+                   for t in toks]
+
+        def run_steps(mb=mb, batches=batches, dev=dev):
+            step = mb.make_train_step()
+            p = tree_map(lambda t: t.to(dev), p0)
+            opt, kept, metrics = mb.init_opt_state(p), [], []
+            for b in batches:
+                p, opt, m = step(p, opt, b)
+                kept.append(p)
+                metrics.append({k: float(v) for k, v in m.items()})
+            return kept[0], kept[-1], metrics
+
+        (p1, pn, metrics), _, kc, ms = counted("jamba", run_steps)
+        no_launches(f"jamba steps {dev}", kc)
+        grads = mb.loss_and_grads(tree_map(lambda t: t.to(dev), p0),
+                                  batches[0])[3]
+        out[dev] = ([t.cpu() for t in tree_leaves(p1)],
+                    [t.cpu() for t in tree_leaves(pn)],
+                    [t.cpu() for t in tree_leaves(grads)], metrics, ms)
+    (g1, gn, gg, mg, ms_g), (c1, cn, gc, mc, ms_c) = out["cuda"], out["cpu"]
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(mg, mc))
+    gnorm_rel = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                    for a, b in zip(mg, mc))
+    g_rel = max(float((a - b).abs().max() / (b.abs().max() + 1e-30))
+                for a, b in zip(gg, gc))
+    # the first step: tight where the CPU's clipped gradient is signal
+    clip = min(1.0, tc.clip_norm / mc[0]["grad_norm"])
+    signal_n, signal_err = 0, 0.0
+    for a, b, g in zip(g1, c1, gc):
+        mag = g.abs()
+        sig = (mag >= STEP_SIGNAL * mag.max()) & (mag * clip >= 100 * 1e-8)
+        if bool(sig.any()):
+            signal_n += int(sig.sum())
+            signal_err = max(signal_err, float((a - b).abs()[sig].max()))
+    dp = max(float((a - b).abs().max()) for a, b in zip(gn, cn))
+    reach = 2 * sum(m["lr"] for m in mc)
+    row = {"sub": "jamba_steps_card_vs_cpu", "config": "jamba_v0_1_52b "
+           "reduced, float32 activations", "steps": STEP_COUNT,
+           "card": mg, "cpu": mc, "card_ms": ms_g, "cpu_ms": ms_c,
+           "loss_max_rel": loss_rel, "grad_norm_max_rel": gnorm_rel,
+           "grad_max_rel": g_rel, "param_count": sum(b.numel() for b in c1),
+           "first_step_signal_params": signal_n,
+           "first_step_signal_max_abs": signal_err,
+           "last_step_param_max_abs": dp,
+           "bounds": {"loss_rtol": STEP_LOSS_RTOL,
+                      "grad_norm_rtol": STEP_GNORM_RTOL,
+                      "grad_rel": STEP_GRAD_REL,
+                      "signal_param_atol": STEP_PARAM_ATOL,
+                      "param_atol": reach}}
+    if not (loss_rel <= STEP_LOSS_RTOL and gnorm_rel <= STEP_GNORM_RTOL
+            and all(abs(a["lr"] - b["lr"]) <= 1e-6 * b["lr"]
+                    for a, b in zip(mg, mc))
+            and g_rel <= STEP_GRAD_REL and signal_n > 0
+            and signal_err <= STEP_PARAM_ATOL and dp <= reach):
+        fail(f"train jamba: card and CPU steps differ: {row}")
+    row["seconds"] = time.perf_counter() - t_sub
+    print("train " + json.dumps(row))
+
+    # ----------------------------------------------------- geo snap_path
+    t_sub = time.perf_counter()
+    t_n, s_n = SNAP_SHAPE
+    rng = np.random.default_rng(1)
+    ax, ay = rng.uniform(0, 400_000, s_n), rng.uniform(0, 400_000, s_n)
+    ang = rng.uniform(0, 2 * np.pi, s_n)
+    bx, by = ax + 4000 * np.cos(ang), ay + 4000 * np.sin(ang)
+    pop = rng.integers(0, 100, s_n).astype(np.float64)
+    walk = np.cumsum(rng.normal(0, 800, (t_n, 2)), axis=0) + 200_000
+    args = (walk[:, 0], walk[:, 1], ax, ay, bx, by, pop, 0.05)
+    runs = []
+    for _ in range(3):
+        got, _, kc, ms = counted("snap", lambda: snap_path(*args,
+                                                           device="cuda"))
+        no_launches("snap_path", kc)
+        runs.append(ms)
+    t0 = time.perf_counter()
+    want = snap_path(*args, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(got, want):
+        fail(f"train snap_path: the card's path differs from the CPU's at "
+             f"{int((got != want).sum())} of {t_n} waypoints")
+    print("train " + json.dumps({
+        "sub": "snap_path", "waypoints": t_n, "segments": s_n,
+        "transition_bytes": s_n * s_n * 4, "cold_ms": runs[0],
+        "warm_ms": min(runs[1:]), "cpu_ms": cpu_ms, "equal": True,
+        "seconds": time.perf_counter() - t_sub}))
 
 
 def _leaves(tree):

@@ -1,0 +1,6 @@
+"""Checkpointing: async, atomic, keep-last-k, the reference's layout."""
+from .checkpoint import (CheckpointManager, latest_step, restore_checkpoint,
+                         save_checkpoint)
+
+__all__ = ["CheckpointManager", "latest_step", "restore_checkpoint",
+           "save_checkpoint"]

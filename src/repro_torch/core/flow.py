@@ -207,11 +207,34 @@ class Flow:
         return self._push(ModelApplyOp(model, ins, output))
 
     def to_dataset(self, features, target, engine=None, **kw):
-        """Materialize this flow as ML training data (paper §5).  The
-        training path is not ported yet (ROADMAP.md, queue A item A9)."""
-        raise NotImplementedError(
-            "to_dataset() needs the training path, which the port has "
-            "not reached yet (ROADMAP.md, queue A item A9)")
+        """Materialize this flow as ML training data (paper §5).
+
+        ``features`` is a ``{name: expr}`` mapping (or a sequence of field
+        refs), ``target`` an expression; the query executes like any other
+        flow — selection rides indices and the fused refine pass — and the
+        resulting columns land in a :class:`repro_torch.data.pipeline.
+        TrainingDataset`, whose ``fit()`` trains an ``MLPRegressor`` on
+        exactly the rows the query selected (time-to-trained-model).
+        """
+        from ..data.pipeline import TrainingDataset
+        if isinstance(features, dict):
+            items = [(n, _trace(e)) for n, e in features.items()]
+        else:
+            items = []
+            for i, f in enumerate(features):
+                e = _trace(f)
+                name = (e.path.replace(".", "_")
+                        if isinstance(e, FieldRef) else f"f{i}")
+                items.append((name, e))
+        te = _trace(target)
+        t_name = (te.path.replace(".", "_")
+                  if isinstance(te, FieldRef) else "target")
+        if t_name in {n for n, _ in items}:
+            t_name = "__target"
+        flow = self._push(MapOp(MakeProto(tuple(items) + ((t_name, te),))))
+        table = flow.collect(engine, **kw)
+        return TrainingDataset.from_table(table, [n for n, _ in items],
+                                          t_name)
 
     # -- materialization ------------------------------------------------------
     def collect(self, engine=None, **kw):

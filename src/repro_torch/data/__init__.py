@@ -1,10 +1,10 @@
-"""Data substrate: synthetic world generator.
-
-(The training pipelines are not ported yet: ROADMAP.md, queue A item A9.)"""
+"""Data substrate: synthetic world generator + training pipelines."""
 from .synthetic import (generate_world, roads_schema, observations_schema,
                         route_requests_schema, trips_schema, city_region,
                         CITIES, BAY_AREA)
+from .pipeline import TokenPipeline, TrainingDataset, WflBatcher
 
 __all__ = ["generate_world", "roads_schema", "observations_schema",
            "route_requests_schema", "trips_schema", "city_region",
-           "CITIES", "BAY_AREA"]
+           "CITIES", "BAY_AREA", "TokenPipeline", "TrainingDataset",
+           "WflBatcher"]

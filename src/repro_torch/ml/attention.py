@@ -1,18 +1,21 @@
 """Attention blocks: GQA with RoPE/M-RoPE, SWA, local:global, softcap.
 
-The port of ``repro/ml/attention.py``.  Two execution paths share one
+The port of ``repro/ml/attention.py``.  Three execution paths share one
 semantic definition:
 
-  * :func:`_attention` — full-sequence attention (training forward and
-    prefill) through ``kernels.ops.flash_attention``: the hand-written
-    CUDA kernel for CUDA tensors, its plain version for CPU tensors;
+  * ``kernels.ops.flash_attention`` — full-sequence attention through the
+    hand-written CUDA kernel for CUDA tensors, its plain version for CPU
+    tensors (``impl="kernel"``: prefill and serving);
+  * :func:`chunked_attention` — the reference's flash-structured plain
+    path (a loop over KV blocks, online softmax, each block under
+    ``torch.utils.checkpoint``), which is differentiable: it is the path
+    the reference trains through (``impl="reference"``), and the port's
+    train step takes it too, since the CUDA kernel has no backward;
   * :func:`decode_attention` — single-token attention against a KV cache
     (optionally a rolling window cache), plain PyTorch as the reference's
     is plain jnp.
 
-The reference's ``chunked_attention`` (a jnp flash fallback that keeps
-the 512-device dry-run's lowered memory at O(S·block)) has no use here,
-and the sharding constraints are no-ops without a mesh, so both go.
+The reference's sharding constraints are no-ops without a mesh and go.
 
 KV caches: dict(k, v [B, Hkv, Smax, hd], len int).  Rolling caches
 (SWA / local layers) store only ``window`` positions and are written
@@ -24,15 +27,98 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .layers import dense_init, mrope, rope
 
-__all__ = ["attn_init", "attn_apply", "decode_attention", "cache_update",
-           "init_cache", "AttnSpec"]
+__all__ = ["attn_init", "attn_apply", "chunked_attention",
+           "decode_attention", "cache_update", "init_cache", "AttnSpec"]
 
 
-def _attention(q, k, v, *, causal, window, softcap, scale):
+# --------------------------------------------------------------------------
+# Plain chunked flash attention (memory ∝ S·block, differentiable)
+# --------------------------------------------------------------------------
+
+def _kv_block(qg, kc, vc, m, l, acc, k0: int, skv: int, q_pos, *,
+              causal, window, softcap, scale):
+    """One KV block of the online softmax: (m, l, acc) → updated.  Under
+    a checkpoint, backward recomputes the block's probabilities instead
+    of saving them."""
+    bk = kc.shape[2]
+    # operands rounded to the cache dtype, products summed in float32
+    # (the reference's dot_general with preferred_element_type=float32)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(kc.dtype).float(),
+                          kc.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    k_pos = k0 + torch.arange(bk, device=qg.device)
+    mask = k_pos[None, :] < skv
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    # amax spreads a tie's gradient evenly, as jnp.max does
+    m_new = torch.maximum(m, torch.amax(logits, dim=-1, keepdim=True))
+    p = torch.exp(logits - m_new)
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bhgqk,bhkd->bhgqd", p.to(vc.dtype).float(),
+                      vc.float())
+    return m_new, l_new, acc * corr + pv
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      scale: Optional[float] = None,
+                      block_k: int = 1024):
+    """q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D] → [B,Hq,Sq,D], online softmax.
+
+    The reference's ``chunked_attention``: grouped GQA layout [B, Hkv, g,
+    Sq, D] (no repeated K/V), KV blocks of ``block_k`` visited in order,
+    masks causal with the ``Skv − Sq`` offset, window and softcap, masked
+    logits at −1e30.
+    """
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    bk = min(block_k, skv)
+    nblk = (skv + bk - 1) // bk
+    pad = nblk * bk - skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    qg = q.reshape(b, hkv, group, sq, d)
+    q_pos = torch.arange(sq, device=q.device) + (skv - sq)
+    m = torch.full((b, hkv, group, sq, 1), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, group, sq, 1), dtype=torch.float32,
+                    device=q.device)
+    acc = torch.zeros((b, hkv, group, sq, d), dtype=torch.float32,
+                      device=q.device)
+    for i in range(nblk):
+        k0 = i * bk
+        m, l, acc = checkpoint(
+            _kv_block, qg, k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk], m, l,
+            acc, k0, skv, q_pos, causal=causal, window=window,
+            softcap=softcap, scale=scale, use_reentrant=False)
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _attention(q, k, v, *, causal, window, softcap, scale,
+               impl: str = "kernel"):
+    """Full-sequence attention: ``"kernel"`` through
+    ``kops.flash_attention`` (the CUDA kernel on the card, no backward),
+    ``"reference"`` through :func:`chunked_attention`."""
+    if impl == "reference":
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, scale=scale)
+    if impl != "kernel":
+        raise ValueError(f"impl {impl!r}: expected 'kernel' or 'reference'")
     return kops.flash_attention(q.contiguous(), k.contiguous(),
                                 v.contiguous(), causal=causal,
                                 window=window, softcap=softcap, scale=scale)
@@ -155,7 +241,8 @@ def _project_qkv(x, p, spec: AttnSpec, positions):
 
 def attn_apply(x, p, spec: AttnSpec, positions, *,
                kv: Optional[Tuple] = None,
-               cache: Optional[dict] = None, rolling: bool = False):
+               cache: Optional[dict] = None, rolling: bool = False,
+               impl: str = "kernel"):
     """Returns (out [B,S,D], updated cache or None).
 
     Training/prefill: cache None → full attention over x (or ``kv`` for
@@ -171,7 +258,8 @@ def attn_apply(x, p, spec: AttnSpec, positions, *,
                                softcap=spec.softcap, rolling=rolling)
     else:
         out = _attention(q, k, v, causal=spec.causal, window=spec.window,
-                         softcap=spec.softcap, scale=spec.query_scale)
+                         softcap=spec.softcap, scale=spec.query_scale,
+                         impl=impl)
     out = out.transpose(1, 2).reshape(b, s, -1)
     dt = torch.promote_types(out.dtype, p["wo"].dtype)   # as jnp promotes
     return out.to(dt) @ p["wo"].to(dt), cache

@@ -1,13 +1,21 @@
 """Mamba (selective SSM) block — Jamba's recurrent layer.
 
 The port of ``repro/ml/mamba.py``.  Training/prefill run a *chunked*
-selective scan: each chunk's diagonal recurrence h_t = a_t ⊙ h_{t-1} +
-bx_t, flattened to [B, c, dI·N], goes to ``kernels.ops.ssm_scan`` (the
-hand-written CUDA kernel for CUDA tensors) with the carry from the last
-chunk as its starting state.  The reference runs the same recurrence
-inline as an associative scan and calls its Pallas ``ssm_scan`` "the
-TPU-target fast path for the flattened inner scan"; here the kernel is
-that path.  Live memory is O(B·chunk·dI·N), as in the reference.
+selective scan, the chunks threaded sequentially through a [B, dI, N]
+carry; live memory is O(B·chunk·dI·N), as in the reference.  Two paths
+solve each chunk's diagonal recurrence h_t = a_t ⊙ h_{t-1} + bx_t:
+
+  * ``impl="kernel"`` (prefill and serving): flattened to [B, c, dI·N],
+    it goes to ``kernels.ops.ssm_scan`` (the hand-written CUDA kernel for
+    CUDA tensors) with the carry from the last chunk as its starting
+    state.  The reference calls its Pallas ``ssm_scan`` "the TPU-target
+    fast path for the flattened inner scan"; here the kernel is that path.
+    It has no backward.
+  * ``impl="reference"`` (training): the reference's own path, an
+    associative scan in the same pairing order as ``jax.lax.
+    associative_scan`` over chunks padded to ``chunk`` (a = 1, bx = 0),
+    each chunk under ``torch.utils.checkpoint`` as at the reference's
+    ``jax.checkpoint``; it is differentiable.
 
 Decode keeps O(1) state: {h: [B, dI, N], conv: [B, K-1, dI]}, one step in
 plain PyTorch.
@@ -18,11 +26,13 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .layers import dense_init, silu
 
-__all__ = ["mamba_init", "mamba_apply", "mamba_decode", "mamba_cache_init"]
+__all__ = ["mamba_init", "mamba_apply", "mamba_decode", "mamba_cache_init",
+           "associative_scan"]
 
 
 def mamba_init(gen: torch.Generator, d: int, *, expand: int = 2,
@@ -67,14 +77,63 @@ def _ssm_params(x1, p):
     return delta, b_ssm, c_ssm
 
 
-def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False):
+def _combine(u, w):
+    """The reference's scan operator: (a, b) pairs, ``u`` before ``w``."""
+    return u[0] * w[0], w[1] + w[0] * u[1]
+
+
+def _interleave(evens, odds):
+    """evens[0], odds[0], evens[1], … along dim 1 (len(evens) is
+    len(odds) or one more)."""
+    n = odds.shape[1]
+    out = torch.stack([evens[:, :n], odds], dim=2).flatten(1, 2)
+    if evens.shape[1] > n:
+        out = torch.cat([out, evens[:, n:]], dim=1)
+    return out
+
+
+def associative_scan(a, b):
+    """Inclusive scan of (a, b) along dim 1 under :func:`_combine`, with
+    ``jax.lax.associative_scan``'s pairing (odd/even recursion), so the
+    float32 products group as the reference's do."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ra, rb = _combine((a[:, 0:-1:2], b[:, 0:-1:2]), (a[:, 1::2], b[:, 1::2]))
+    oa, ob = associative_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = _combine((oa[:, :-1], ob[:, :-1]), (a[:, 2::2], b[:, 2::2]))
+    else:
+        ea, eb = _combine((oa, ob), (a[:, 2::2], b[:, 2::2]))
+    ea = torch.cat([a[:, :1], ea], dim=1)
+    eb = torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def _scan_chunk(h, xc, dc, bc, cc, A):
+    """One chunk of the reference path: bf16-staged inputs, float32
+    recurrence → (carry after the chunk, y [B, c, dI])."""
+    dc = dc.float()
+    a = torch.exp(dc[..., None] * A)                        # [B, c, dI, N]
+    bx = (dc * xc.float())[..., None] * bc.float()[:, :, None, :]
+    a_sc, b_sc = associative_scan(a, bx)
+    hs = b_sc + a_sc * h[:, None]
+    y = torch.einsum("bcdn,bcn->bcd", hs, cc.float())
+    return hs[:, -1], y
+
+
+def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False,
+                impl: str = "kernel"):
     """x [B, S, D] → [B, S, D] (training / prefill).
 
     ``return_state`` additionally returns the decode cache
-    {h: [B, dI, N], conv: [B, K-1, dI]} after the last position.  The
-    last chunk is simply shorter where ``chunk`` does not divide S (the
-    reference pads it with a = 1, bx = 0, which leaves the carry as is).
+    {h: [B, dI, N], conv: [B, K-1, dI]} after the last position.  On the
+    kernel path the last chunk is simply shorter where ``chunk`` does not
+    divide S; the reference path pads it with a = 1, bx = 0, which leaves
+    the carry as is, as the reference does.
     """
+    if impl not in ("kernel", "reference"):
+        raise ValueError(f"impl {impl!r}: expected 'kernel' or 'reference'")
     b, s, _ = x.shape
     di = p["conv_w"].shape[0]
     n = p["A_log"].shape[1]
@@ -91,27 +150,41 @@ def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False):
     bh = b_ssm.to(torch.bfloat16)
     ch = c_ssm.to(torch.bfloat16)
     c = min(chunk, s)
-    h = torch.zeros((b, di * n), dtype=torch.float32, device=x.device)
     ys = []
-    for c0 in range(0, s, c):
-        dc = dh[:, c0:c0 + c].float()
-        xc = x1h[:, c0:c0 + c].float()
-        bc = bh[:, c0:c0 + c].float()
-        cl = dc.shape[1]
-        a = torch.exp(dc[..., None] * A)                   # [B, c, dI, N]
-        bx = (dc * xc)[..., None] * bc[:, :, None, :]      # [B, c, dI, N]
-        hs, h = kops.ssm_scan(a.reshape(b, cl, di * n),
-                              bx.reshape(b, cl, di * n), h)
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs.view(b, cl, di, n),
-                               ch[:, c0:c0 + c].float()))
-    y = torch.cat(ys, dim=1)
+    if impl == "reference":
+        pad = (-s) % c
+        if pad:
+            x1h, dh, bh, ch = (F.pad(t, (0, 0, 0, pad))
+                               for t in (x1h, dh, bh, ch))
+        h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+        for c0 in range(0, s + pad, c):
+            h, yc = checkpoint(_scan_chunk, h, x1h[:, c0:c0 + c],
+                               dh[:, c0:c0 + c], bh[:, c0:c0 + c],
+                               ch[:, c0:c0 + c], A, use_reentrant=False)
+            ys.append(yc)
+        y = torch.cat(ys, dim=1)[:, :s]
+    else:
+        h = torch.zeros((b, di * n), dtype=torch.float32, device=x.device)
+        for c0 in range(0, s, c):
+            dc = dh[:, c0:c0 + c].float()
+            xc = x1h[:, c0:c0 + c].float()
+            bc = bh[:, c0:c0 + c].float()
+            cl = dc.shape[1]
+            a = torch.exp(dc[..., None] * A)               # [B, c, dI, N]
+            bx = (dc * xc)[..., None] * bc[:, :, None, :]  # [B, c, dI, N]
+            hs, h = kops.ssm_scan(a.reshape(b, cl, di * n),
+                                  bx.reshape(b, cl, di * n), h)
+            ys.append(torch.einsum("bcdn,bcn->bcd", hs.view(b, cl, di, n),
+                                   ch[:, c0:c0 + c].float()))
+        y = torch.cat(ys, dim=1)
+        h = h.view(b, di, n)
     y = y + p["D_skip"] * x1
     y = y.to(x.dtype) * silu(z)
     out = y @ p["out_proj"].to(y.dtype)
     if return_state:
         k = p["conv_w"].shape[1]
         pre = F.pad(x1_raw, (0, 0, k - 1, 0))[:, -(k - 1):]
-        return out, {"h": h.view(b, di, n), "conv": pre.float()}
+        return out, {"h": h, "conv": pre.float()}
     return out
 
 

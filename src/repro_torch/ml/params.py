@@ -54,11 +54,14 @@ def cast_params(cfg: ArchConfig, tree):
 
 
 def from_jax_params(cfg: ArchConfig, tree: Dict[str, Any],
-                    device="cuda") -> Dict[str, Any]:
+                    device="cuda", dtype=None) -> Dict[str, Any]:
     """The reference's ``LM.init`` tree, as numpy arrays
     (``jax.tree_util.tree_map(np.asarray, params)``), → the port's
-    parameters on ``device``, each leaf in its storage dtype."""
+    parameters on ``device``, each leaf in its storage dtype — or every
+    leaf in ``dtype`` (``torch.float32`` for training, which keeps the
+    reference's float32 leaves as they are)."""
     def leaf(a, name):
         t = torch.from_numpy(np.array(a, dtype=np.float32))
-        return t.to(device=device, dtype=storage_dtype(cfg, name))
+        return t.to(device=device,
+                    dtype=dtype or storage_dtype(cfg, name))
     return tree_map(leaf, tree)

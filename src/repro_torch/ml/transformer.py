@@ -8,10 +8,28 @@ the JAX package's parameters carry over one to one (``ml.params``); the
 reference's ``lax.scan`` over groups becomes a Python loop.
 
 Entry points:
-  * ``apply``       — forward → logits [B, S, V] (float32) and aux losses
+  * ``hidden`` / ``apply`` — training forward → final hidden states or
+                      logits [B, S, V] (float32), and aux losses
   * ``prefill``     — forward over a prompt, returns last-token logits +
                       filled caches (KV for attn, state for SSM)
   * ``decode_step`` — one token against caches, updated in place
+
+``impl`` picks the full-sequence paths, as the reference's ``LM(impl=)``
+does: ``"kernel"`` (the default, what ``launch.serve`` runs) sends
+attention to ``kops.flash_attention`` and the Mamba chunks to
+``kops.ssm_scan`` — the CUDA kernels on the card, which have no backward
+and raise under grad there; ``"reference"`` runs the plain, differentiable
+``attention.chunked_attention`` and the associative Mamba scan, the path
+``ml.model.ModelBundle`` trains through.  The kernel wrappers still pick
+kernel or plain version by the device of their inputs.
+
+``remat`` ("none" | "dots" | "full") wraps each block in
+``torch.utils.checkpoint``: "full" saves only the block's input and
+recomputes the rest in backward; "dots" also saves every matrix product's
+output (selective checkpointing of ``aten.mm``/``bmm``, the reference's
+``dots_saveable``).  The reference also checkpoints each layer group
+around its blocks; the port checkpoints the blocks only.  Gradients do
+not change with ``remat``.
 
 Not ported yet (ROADMAP A11): the xLSTM blocks (``mlstm``/``slstm``) and
 the Whisper encoder; an ``LM`` of such a config raises.
@@ -19,9 +37,12 @@ the Whisper encoder; an ``LM`` of such a config raises.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from . import attention as A
@@ -29,9 +50,21 @@ from . import mamba as Mb
 from .layers import (dense_init, embed_init, layer_norm, mlp_apply,
                      mlp_init, norm_init, rms_norm)
 from .moe import moe_apply, moe_init
-from .params import act_dtype, cast_params
+from .params import act_dtype, cast_params, tree_map
 
 __all__ = ["LM", "cycle_len"]
+
+IMPLS = ("kernel", "reference")
+REMATS = ("none", "dots", "full")
+
+#: the matrix products "dots" keeps through a block's checkpoint
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def cycle_len(cfg: ArchConfig) -> int:
@@ -71,7 +104,8 @@ def _stack(trees):
 
 # ---------------------------------------------------------------- init
 
-def _block_init(gen: torch.Generator, cfg: ArchConfig, slot: int):
+def _block_init(gen: torch.Generator, cfg: ArchConfig, slot: int,
+                dtype: Optional[torch.dtype] = None):
     kind, spec, is_moe, _ = _slot_info(cfg, slot)
     dev = gen.device
     p: Dict[str, Any] = {"norm1": norm_init(cfg.d_model, dev)}
@@ -93,7 +127,14 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, slot: int):
         else:
             p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff,
                                 gated=(cfg.act == "silu"))
-    return cast_params(cfg, p)
+    return _cast(cfg, p, dtype)
+
+
+def _cast(cfg: ArchConfig, tree, dtype: Optional[torch.dtype]):
+    """Every leaf to its storage dtype (``dtype=None``), or to ``dtype``."""
+    if dtype is None:
+        return cast_params(cfg, tree)
+    return tree_map(lambda t, _: t.to(dtype), tree)
 
 
 # ---------------------------------------------------------------- apply
@@ -121,7 +162,7 @@ def _mlp_tail(cfg: ArchConfig, x, p):
 
 
 def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
-                 return_state: bool = False):
+                 impl: str = "kernel", return_state: bool = False):
     """Full-sequence forward for one layer.
 
     Returns (x, aux, extras): extras is {k, v} for attn layers or the
@@ -136,16 +177,17 @@ def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
         rope_pos = positions if cfg.pos == "rope" else None
         q, k, v = A._project_qkv(h, p["attn"], spec, rope_pos)
         out = A._attention(q, k, v, causal=spec.causal, window=spec.window,
-                           softcap=spec.softcap, scale=None)
+                           softcap=spec.softcap, scale=None, impl=impl)
         b_, s_ = h.shape[0], h.shape[1]
         out = out.transpose(1, 2).reshape(b_, s_, -1)
         x = x + out @ p["attn"]["wo"].to(out.dtype)
         extras = {"k": k, "v": v}
     else:
         if return_state:
-            y, extras = Mb.mamba_apply(h, p["mamba"], return_state=True)
+            y, extras = Mb.mamba_apply(h, p["mamba"], return_state=True,
+                                       impl=impl)
         else:
-            y = Mb.mamba_apply(h, p["mamba"])
+            y = Mb.mamba_apply(h, p["mamba"], impl=impl)
         x = x + y
     x, aux = _mlp_tail(cfg, x, p)
     if aux is None:
@@ -188,7 +230,8 @@ def _block_decode(cfg: ArchConfig, slot: int, x, p, cache, pos: int):
 # ---------------------------------------------------------------- model
 
 class LM:
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, *, impl: str = "kernel",
+                 remat: str = "none"):
         kinds = set(cfg.block_pattern)
         if kinds & {"mlstm", "slstm"}:
             raise NotImplementedError(
@@ -200,7 +243,13 @@ class LM:
                 "are not ported yet (ROADMAP A11)")
         if not kinds <= {"attn", "mamba"}:
             raise ValueError(f"{cfg.name}: unknown block kinds {kinds}")
+        if impl not in IMPLS:
+            raise ValueError(f"impl {impl!r}: expected one of {IMPLS}")
+        if remat not in REMATS:
+            raise ValueError(f"remat {remat!r}: expected one of {REMATS}")
         self.cfg = cfg
+        self.impl = impl
+        self.remat = remat
         self.cyc = cycle_len(cfg)
         if cfg.num_layers % self.cyc:
             raise ValueError(f"{cfg.name}: layers {cfg.num_layers} not "
@@ -208,14 +257,16 @@ class LM:
         self.groups = cfg.num_layers // self.cyc
 
     # ------------------------------------------------------------- init
-    def init(self, seed: int = 0, device="cuda") -> Dict[str, Any]:
+    def init(self, seed: int = 0, device="cuda",
+             dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
         """Seeded random parameters on ``device``, each weight in its
-        storage dtype (``ml.params``)."""
+        storage dtype (``ml.params``) — or every leaf in ``dtype``
+        (``torch.float32`` for training)."""
         cfg = self.cfg
         gen = torch.Generator(device=device).manual_seed(seed)
         p: Dict[str, Any] = {"embed": embed_init(gen, cfg.vocab_size,
                                                  cfg.d_model)}
-        p["blocks"] = {f"slot{s}": _stack([_block_init(gen, cfg, s)
+        p["blocks"] = {f"slot{s}": _stack([_block_init(gen, cfg, s, dtype)
                                            for _ in range(self.groups)])
                        for s in range(self.cyc)}
         p["final_norm"] = norm_init(cfg.d_model, gen.device)
@@ -224,7 +275,7 @@ class LM:
                                                   device=gen.device)
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size)
-        return cast_params(cfg, p)
+        return _cast(cfg, p, dtype)
 
     # --------------------------------------------------------- helpers
     def _embed(self, p, tokens):
@@ -239,6 +290,22 @@ class LM:
         return x.float() @ self.head(p).to(x.dtype).float()
 
     # ------------------------------------------------------------ apply
+    def _block(self, sl: int, x, gp, positions):
+        """One block of the training forward, under ``remat``'s
+        checkpoint → (x, load-balance loss, router z-loss)."""
+        def one(x):
+            y, aux, _ = _block_apply(self.cfg, sl, x, gp, positions,
+                                     impl=self.impl)
+            return y, aux["load_balance"], aux["router_z"]
+
+        if self.remat == "none":
+            return one(x)
+        kw = {}
+        if self.remat == "dots":
+            kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                       _save_dots)
+        return checkpoint(one, x, use_reentrant=False, **kw)
+
     def hidden(self, p, tokens, positions=None):
         """Forward up to the final norm → (hidden, aux dict)."""
         cfg = self.cfg
@@ -251,10 +318,10 @@ class LM:
         for g in range(self.groups):
             grp = _index(p["blocks"], g)
             for sl in range(self.cyc):
-                x, aux, _ = _block_apply(cfg, sl, x, grp[f"slot{sl}"],
-                                         positions)
-                lb = lb + aux["load_balance"]
-                rz = rz + aux["router_z"]
+                x, lb_, rz_ = self._block(sl, x, grp[f"slot{sl}"],
+                                          positions)
+                lb = lb + lb_
+                rz = rz + rz_
         x = _norm(cfg)(x, p["final_norm"], cfg.norm_eps)
         return x, {"load_balance": lb, "router_z": rz}
 
@@ -314,7 +381,8 @@ class LM:
             grp = _index(p["blocks"], g)
             for sl in range(self.cyc):
                 x, _, ex = _block_apply(cfg, sl, x, grp[f"slot{sl}"],
-                                        positions, return_state=True)
+                                        positions, impl=self.impl,
+                                        return_state=True)
                 extras[f"slot{sl}"].append(ex)
         x = _norm(cfg)(x, p["final_norm"], cfg.norm_eps)
         logits = self._logits(p, x[:, -1:, :])

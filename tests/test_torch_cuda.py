@@ -998,3 +998,145 @@ def test_flume_speculation_on_card(card, tmp_path):
     again = fl2.collect(flow, job_id=fl._job_id(flow))
     assert again.to_records() == res.to_records()
     assert ops.launch_counts() == {} and _build.kernel_launches() == {}
+
+
+# ------------------------------------------------------ the training paths
+#
+# Card against CPU, TF32 off: float32 products and sums in another order
+# (cuBLAS against the CPU's BLAS): losses rtol 1e-4, grad norm 1e-3,
+# gradients 1e-4 of each leaf's largest, parameters within AdamW's reach
+# (below); the Viterbi path is equal.
+
+def test_mlp_fit_on_card_matches_cpu(fp32_card):
+    """The same initial params and index stream (both drawn on the CPU
+    from the seed) give the same loss curve and predictions."""
+    from repro_torch.ml.integration import MLPRegressor
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(5000, 3)) * [1.0, 4.0, 0.5]
+    y = x @ np.array([2.0, -0.5, 3.0]) + 10.0 + rng.normal(size=5000)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = MLPRegressor(3, hidden=64, depth=2, seed=0, device=dev)
+        models[dev] = (m, m.train(x, y, steps=200, lr=2e-3, batch=1024))
+    (gpu, lg), (cpu, lc) = models["cuda"], models["cpu"]
+    assert gpu.params["layers"][0]["w"].is_cuda
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    cols = {"a": x[:100, 0], "b": x[:100, 1], "c": x[:100, 2]}
+    np.testing.assert_allclose(
+        gpu.as_column_model(["a", "b", "c"]).apply_columns(cols),
+        cpu.as_column_model(["a", "b", "c"]).apply_columns(cols),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "jamba_v0_1_52b"])
+def test_train_step_on_card_matches_cpu(fp32_card, arch):
+    """Three reduced train steps (float32 activations) from the same
+    params on the card and on the CPU, launching no kernel."""
+    from dataclasses import replace
+    from repro_torch.ml.model import ModelBundle, TrainConfig
+    cfg = replace(get_config(arch).reduced(), act_dtype="float32")
+    tc = TrainConfig(warmup=2, total_steps=10, loss_chunk=16, remat="full")
+    p0 = ModelBundle(cfg, train_cfg=tc, device="cuda").init_params(0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        mb = ModelBundle(cfg, train_cfg=tc, device=dev)
+        p = _to(p0, dev)
+        opt = mb.init_opt_state(p)
+        step = mb.make_train_step()
+        metrics, kept = [], []
+        before = dict(_build.kernel_launches())
+        for i in range(3):
+            p, opt, m = step(p, opt, _batch_on(cfg, dev, seed=i))
+            kept.append(p)
+            metrics.append({k: float(v) for k, v in m.items()})
+        assert _build.kernel_launches() == before
+        runs[dev] = (p, metrics, kept[0])
+    for g, c in zip(runs["cuda"][1], runs["cpu"][1]):
+        np.testing.assert_allclose(g["loss"], c["loss"], rtol=1e-4)
+        np.testing.assert_allclose(g["grad_norm"], c["grad_norm"], rtol=1e-3)
+        assert g["lr"] == pytest.approx(c["lr"], rel=1e-6)
+    # the gradients of the first step, each leaf within 1e-4 of its
+    # largest element; 2^-8 where the Mamba path stages its scan inputs in
+    # bf16 (a float32 ulp upstream can flip one bf16 rounding)
+    rel = 2.0 ** -8 if "mamba" in cfg.block_pattern else 1e-4
+    grads = {dev: ModelBundle(cfg, train_cfg=tc, device=dev).loss_and_grads(
+        _to(p0, dev), _batch_on(cfg, dev))[3] for dev in ("cuda", "cpu")}
+    for k, (a, b) in _pairs(grads["cuda"], grads["cpu"]):
+        scale = float(b.abs().max()) + 1e-30
+        np.testing.assert_allclose(a.cpu().numpy() / scale,
+                                   b.numpy() / scale, atol=rel, err_msg=k)
+    # AdamW's first update is g / (|g| + eps) ≈ ±1 whatever |g|: where the
+    # CPU's clipped gradient is signal (4 × the gradient bound above, and
+    # 100 × eps), its sign is fixed by the check above and the first step
+    # must move the param as on the CPU, within 1e-5
+    clip = min(1.0, tc.clip_norm / runs["cpu"][1][0]["grad_norm"])
+    held = 0
+    for (k, (a, b)), (_, (g, _)) in zip(
+            _pairs(runs["cuda"][2], runs["cpu"][2]),
+            _pairs(grads["cpu"], grads["cpu"])):
+        mag = g.abs()
+        sig = (mag >= 4 * rel * mag.max()) & (mag * clip >= 1e-6)
+        held += int(sig.sum())
+        np.testing.assert_allclose(a.cpu()[sig].numpy(), b[sig].numpy(),
+                                   atol=1e-5, err_msg=k)
+    assert held > 0
+    # one whose gradient is float32 noise may go either way, ±lr a step:
+    # the rest are held within that reach, 2·Σ lr
+    reach = 2 * sum(m["lr"] for m in runs["cpu"][1])
+    for k, (a, b) in _pairs(runs["cuda"][0], runs["cpu"][0]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=reach,
+                                   err_msg=k)
+
+
+def _batch_on(cfg, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32))
+                           .astype(np.int32)).to(dev)
+    return {"tokens": tok, "labels": tok.roll(-1, 1)}
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _pairs(a, b, prefix=""):
+    if isinstance(a, dict):
+        for k in a:
+            yield from _pairs(a[k], b[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], (a, b)
+
+
+def test_snap_path_on_card_equals_cpu(card):
+    from repro_torch.geo.denoise import snap_path
+    rng = np.random.default_rng(4)
+    s, t = 400, 300
+    ax, ay = rng.uniform(0, 40_000, s), rng.uniform(0, 40_000, s)
+    ang = rng.uniform(0, 2 * np.pi, s)
+    bx, by = ax + 900 * np.cos(ang), ay + 900 * np.sin(ang)
+    pop = rng.integers(0, 5, s).astype(np.float64)
+    walk = np.cumsum(rng.normal(0, 300, (t, 2)), axis=0) + 20_000
+    got = snap_path(walk[:, 0], walk[:, 1], ax, ay, bx, by, pop, 0.05)
+    want = snap_path(walk[:, 0], walk[:, 1], ax, ay, bx, by, pop, 0.05,
+                     device="cpu")
+    assert np.array_equal(got, want)
+
+
+def test_lm_kernel_impl_raises_under_grad_on_card(card):
+    """``LM(impl="kernel")`` reaches the CUDA flash_attention / ssm_scan,
+    which have no backward: a forward whose params require grad raises;
+    ``impl="reference"`` differentiates on the card and launches nothing."""
+    cfg = get_config("jamba_v0_1_52b").reduced()
+    live = LM(cfg).init(0, "cuda", dtype=torch.float32)
+    for _, (leaf, _) in _pairs(live, live):
+        leaf.requires_grad_(True)
+    tok = torch.randint(0, cfg.vocab_size, (2, 16), device=card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        LM(cfg, impl="kernel").apply(live, tok)
+    before = dict(_build.kernel_launches())
+    logits, _ = LM(cfg, impl="reference").apply(live, tok)
+    logits.float().square().mean().backward()
+    assert live["embed"].grad is not None
+    assert _build.kernel_launches() == before
