@@ -33,17 +33,26 @@ around it: it imports nothing of the JAX package.  Phases:
    retried through the single-shard seam (``bitmap_intersect``,
    ``compact``, the S=1 ``refine_tracks``), against the oracle;
 3e. lm: the LM serving path (``launch.serve.Server``) at full width —
-   SmolLM-360M at full depth (32 layers) and Jamba-v0.1 cut to one block
+   SmolLM-360M at full depth (32 layers), Jamba-v0.1 cut to one block
    cycle (8 of 32 layers: 7 Mamba + 1 attention, MoE on odd layers; the
-   full 52B does not fit one card) — with seeded random bf16 weights,
-   answering 8 requests (prompts of 64-512 random tokens, 16 new tokens
-   each): flash_attention launches = attention layers × prefills and
-   ssm_scan launches = Mamba layers × 256-token chunks a prefill; then
-   prefill and decode times, peak memory and the device's idle share of
-   one warm ``generate_batch``; then, in float32 with dropless MoE, the
-   decode logits at position S-1 after a prefill of S-1 tokens against
-   the prefill's logits over S tokens (the kernel path against the plain
-   decode path);
+   full 52B does not fit one card) and xLSTM-1.3B at full depth (48
+   layers, 6 × (7 mLSTM + 1 sLSTM), plain PyTorch cells) — with seeded
+   random bf16 weights, answering 8 requests (prompts of 64-512 random
+   tokens, 16 new tokens each): flash_attention launches = attention
+   layers × prefills and ssm_scan launches = Mamba layers × 256-token
+   chunks a prefill (0 and 0 for xLSTM), no other kernel; then prefill
+   and decode times, peak memory and the device's idle share of one warm
+   ``generate_batch`` (xLSTM: of its 15 decode steps; the profiler takes
+   ~90 s to process the sLSTM loop of a prefill); then, in float32 with
+   dropless MoE, the decode logits at position S-1 after a prefill of S-1
+   tokens against the prefill's logits over S tokens (the kernel path
+   against the plain decode path).  Then Whisper large-v3 at full width
+   and depth (32 encoder + 32 decoder layers; ``Server`` takes no frames,
+   as the reference's): seeded frame embeddings [4, 1500, 1280] bf16, 4
+   decoder prompts of 4-224 tokens left-padded, ``LM.prefill(frames=)``
+   and 15 greedy ``decode_step``s, 96 flash_attention launches a prefill
+   (32 non-causal encoder, 32 non-causal cross, 32 causal decoder calls),
+   the same timings and the same float32 check;
 3f. engines: on the same world, each check against the numpy oracle —
    flume: Q7-agg and Q1 through ``FlumeEngine`` (checkpoints in a
    temporary directory), ⌈shards/8⌉ ``run_wave_fused`` a job, a second
@@ -84,9 +93,12 @@ around it: it imports nothing of the JAX package.  Phases:
    wrapper in every output mode it ran in, at both shapes, two calls equal
    bit for bit; compact_batched at the wave's and the
    serve phase's stacks; flash_attention at each LM configuration's bf16
-   prefill, naming the kernel its dispatch ran — the tensor-core one at
-   head dims 64 and 128) and at one larger shape, timed with CUDA events
-   beside the plain version and a library call, and its wrapper's device
+   prefill — Whisper's encoder self-attention and cross-attention too,
+   non-causal, against SDPA with ``is_causal=False`` — naming the kernel
+   its dispatch ran, the tensor-core one at head dims 64 and 128; its
+   larger shape is the largest causal prefill call tiled 4× along the
+   sequence) and at one larger shape, timed with CUDA events beside the
+   plain version and a library call, and its wrapper's device
    time and device operations per call from ``torch.profiler``
    (``device_ms``, ``device_ops``, ``device_records``); then the two
    plain PyTorch ops of phase 3f (``segment_hll``, ``merge_partials``) at
@@ -220,11 +232,19 @@ LM_CHECK_SHAPE = (2, 300)
 #: and its bound: relative to max |logit|, as tests/test_models.py holds
 #: the JAX package (the decode caches are bf16 in both packages)
 LM_CHECK_REL = 0.02
-#: kernel vs plain version: float32 rounding in another summation order
-#: (flash: 3e-3 in float32, one bf16 rounding of the output in bf16;
-#: ssm_scan: 3e-4, as the JAX package holds its kernels)
-FLASH_TOL = {"float32": 3e-3, "bfloat16": 3e-2}
+#: Whisper: frame embeddings [batch, encoder positions] (30 s of audio at
+#: the encoder's 50 positions a second) and decoder prompt lengths drawn
+#: from this range (its decoder context is 448)
+WHISPER_FRAMES = (4, 1500)
+WHISPER_PROMPT_LENS = (4, 224)
+#: kernel vs plain version: flash_attention within ``ref.flash_tolerance``
+#: of the output compared (an ulp of the element and of the largest element
+#: in bf16); ssm_scan 3e-4, as the JAX package holds its kernels
 SSM_TOL = 3e-4
+#: the flash kernels' key tile (kBK in flash_attention.cu): a non-causal
+#: call with a partial last tile also checks that the bound rejects a
+#: result without that tile
+FLASH_KEY_TILE = 64
 
 
 def fail(msg: str) -> None:
@@ -745,10 +765,13 @@ def main() -> int:
     def measure(name, run_kernel, run_plain, run_library, compare,
                 nbytes, nops, iters, plain_iters,
                 ops_per_s=SCALAR_OPS_PER_S):
-        err = compare(run_kernel(), run_plain())
+        err, checked = compare(run_kernel(), run_plain()), {}
+        if isinstance(err, tuple):           # (max |err|, how it was held)
+            err, checked = err
         b_ms, b_by = bound(nbytes, nops, ops_per_s)
         dev_ms, dev_ops, dev_records = device_ms(run_kernel)
-        return {"max_abs_err": err, "ms": cuda_ms(run_kernel, iters),
+        return {"max_abs_err": err, **checked,
+                "ms": cuda_ms(run_kernel, iters),
                 "device_ms": dev_ms, "device_ops": dev_ops,
                 "device_records": dev_records,
                 "plain_ms": cuda_ms(run_plain, plain_iters),
@@ -992,11 +1015,17 @@ def main() -> int:
             for cname, (args, kw) in lm_inputs["flash_attention"].items():
                 per_config[cname] = {
                     "shape": list(args[0].shape),
+                    "kv_shape": list(args[1].shape),
+                    "causal": kw.get("causal", True),
                     "kernel": fa_kernel.kernel_for(args[0].dtype,
                                                    args[0].shape[-1]),
                     **measure(name, *flash_case(torch, *args, **kw), 20, 3,
                               BF16_TENSOR_OPS_PER_S)}
-            top = max(lm_inputs["flash_attention"].items(),
+            # the largest causal prefill call scales to the larger
+            # shape, not an encoder's or a cross call
+            top = max(((k, v) for k, v in
+                       lm_inputs["flash_attention"].items()
+                       if v[1].get("causal", True)),
                       key=lambda kv: kv[1][0][0].numel())
             args, kw = top[1]
             wave = per_config[top[0]]
@@ -1013,9 +1042,16 @@ def main() -> int:
                     fail(f"flash_attention {cname}: the {row['kernel']} "
                          "kernel ran, not the tensor-core one")
                 print(f"kernel flash_attention[{cname}]: {row['kernel']} "
-                      f"{row['shape']} device {row['device_ms']} ms "
+                      f"{row['shape']} x {row['kv_shape']} device "
+                      f"{row['device_ms']} ms "
                       f"(SDPA {row['library_ms']}, bound "
-                      f"{row['bound_ms']:.5f})")
+                      f"{row['bound_ms']:.5f}); max |err| "
+                      f"{row['max_abs_err']} (atol {row['atol']:.6f}, "
+                      f"mean |plain| {row['mean_abs_plain']:.6f}; without "
+                      "the last key tile: "
+                      f"{row.get('tail_tile_dropped_rejected_share')} "
+                      "outside, max shift "
+                      f"{row.get('tail_tile_dropped_max_shift')})")
         elif name == "ssm_scan":
             a, bx, h0 = lm_inputs["ssm_scan"]
             wave = measure(name, *ssm_case(torch, a, bx, h0), 20, 2)
@@ -1514,7 +1550,8 @@ def launch_path(torch, np, calls=LAUNCH_PATH_CALLS,
 
 def flash_case(torch, q, k, v, **kw):
     """The flash_attention case for ``measure``: kernel, plain version,
-    SDPA (a prefill's causal self-attention only), the check, bytes and
+    SDPA (causal self-attention with Sq = Skv, or non-causal attention of
+    any Sq, Skv; without window or softcap), the check, bytes and
     operations.  Bound: 4·D flops (two products) per unmasked (query,
     key) pair and head at the bf16 tensor rate, or q, k, v and o once."""
     from torch.nn.functional import scaled_dot_product_attention
@@ -1522,27 +1559,49 @@ def flash_case(torch, q, k, v, **kw):
     from repro_torch.kernels import ref
     b, hq, sq, d = q.shape
     skv = k.shape[2]
-    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
     qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
     kpos = torch.arange(skv, device=q.device)[None, :]
-    keep = kpos <= qpos if kw.get("causal", True) else kpos >= 0
+    causal = kw.get("causal", True)
+    keep = kpos <= qpos if causal else (kpos >= 0) & (qpos >= 0)
     if kw.get("window"):
         keep &= kpos > qpos - kw["window"]
     pairs = int(keep.sum())
 
     def compare(g, w):
-        d_ = (g.float() - w.float()).abs()
-        if bool((d_ > tol + tol * w.float().abs()).any()):
+        atol, rtol = ref.flash_tolerance(w)
+        wf = w.float()
+        d_ = (g.float() - wf).abs()
+        if bool((d_ > atol + rtol * wf.abs()).any()):
             fail(f"flash_attention {list(q.shape)}: differs from the "
-                 f"plain version by {float(d_.max())}")
-        return float(d_.max())
+                 f"plain version by {float(d_.max())} (atol {atol}, rtol "
+                 f"{rtol})")
+        checked = {"atol": atol, "rtol": rtol,
+                   "mean_abs_plain": float(wf.abs().mean())}
+        if not causal and skv % FLASH_KEY_TILE and skv > FLASH_KEY_TILE:
+            # the plain output without the partial last key tile: the share
+            # of elements the bound rejects, and how far the tile moves them
+            cut = skv - skv % FLASH_KEY_TILE
+            short = ref.flash_attention_ref(q, k[:, :, :cut], v[:, :, :cut],
+                                            **kw).float()
+            shift = (short - wf).abs()
+            share = float((shift > atol + rtol * wf.abs()).float().mean())
+            checked.update(tail_tile_dropped_rejected_share=share,
+                           tail_tile_dropped_max_shift=float(shift.max()))
+            # self-attention's keys are its queries' own spread positions,
+            # so the bound must see the tile; a cross call's keys (the last
+            # encoder layer's output under random weights) can lie so close
+            # together that no key tile moves the output
+            if sq == skv and share == 0:
+                fail(f"flash_attention {list(q.shape)}: the bound does not "
+                     "reject a result without the last key tile")
+        return float(d_.max()), checked
 
     library = None
-    if sq == skv and not kw.get("window") and not kw.get("softcap"):
+    if (sq == skv or not causal) and not kw.get("window") \
+            and not kw.get("softcap"):
         def library():
             return scaled_dot_product_attention(
-                q, k, v, is_causal=kw.get("causal", True),
-                enable_gqa=True)
+                q, k, v, is_causal=causal, enable_gqa=True)
     return (lambda: fa_kernel.flash_attention(q, k, v, **kw),
             lambda: ref.flash_attention_ref(q, k, v, **kw), library,
             compare, q.element_size() * (2 * q.numel() + 2 * k.numel()),
@@ -1572,49 +1631,158 @@ def ssm_case(torch, a, bx, h0):
             2 * a.numel())
 
 
+def _pad_left(np, prompts):
+    """Prompts left-padded with token 0 to a common length, as
+    ``Server.generate_batch`` pads them → [B, S] int32."""
+    s = max(p.shape[0] for p in prompts)
+    toks = np.zeros((len(prompts), s), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, s - p.shape[0]:] = p
+    return toks
+
+
+def _flash_key(cname, args, kw):
+    """The recorded flash_attention call's name: the config for causal
+    self-attention, "<config> encoder" for the non-causal Sq = Skv one,
+    "<config> cross" for the non-causal Sq ≠ Skv one."""
+    if kw.get("causal", True):
+        return cname
+    self_attn = args[0].shape[2] == args[1].shape[2]
+    return f"{cname} {'encoder' if self_attn else 'cross'}"
+
+
+def _record_inputs(torch, inputs, cname, run):
+    """``run()`` with the kernels' wrappers recording their inputs: per
+    flash_attention mode (``_flash_key``) the largest q, and the largest
+    ssm_scan call."""
+    from repro_torch.kernels import flash_attention as fa_kernel
+    from repro_torch.kernels import ssm_scan as ssm_kernel
+
+    def recorder(key, fn):
+        def call(*args, **kw):
+            if key == "flash_attention":
+                name = _flash_key(cname, args, kw)
+                best = inputs[key].get(name)
+                if best is None or best[0][0].numel() < args[0].numel():
+                    inputs[key][name] = (tuple(a.clone() for a in args),
+                                         dict(kw))
+            else:
+                best = inputs[key]
+                if best is None or best[0].numel() <= args[0].numel():
+                    inputs[key] = tuple(
+                        a.clone() if a is not None else None
+                        for a in (args + (None,) * 3)[:3])
+            return fn(*args, **kw)
+        return call
+
+    orig = (fa_kernel.flash_attention, ssm_kernel.ssm_scan)
+    fa_kernel.flash_attention = recorder("flash_attention", orig[0])
+    ssm_kernel.ssm_scan = recorder("ssm_scan", orig[1])
+    try:
+        with torch.inference_mode():
+            run()
+    finally:
+        fa_kernel.flash_attention, ssm_kernel.ssm_scan = orig
+
+
+def _lm_consistency(torch, np, cname, cfg, rng, frames=None):
+    """Prefill (kernels) vs decode (plain) in float32 with dropless MoE:
+    the decode logits at position S-1 after a prefill of S-1 tokens
+    against the prefill's over S, on a fresh float32 model."""
+    from dataclasses import replace
+    from repro_torch.ml.transformer import LM
+    cfg32 = replace(cfg, act_dtype="float32")
+    if cfg.moe_experts:
+        cfg32 = replace(cfg32, moe_capacity_factor=float(cfg.moe_experts))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg32)
+    params = lm.init(seed=0, device="cuda")
+    b, n = LM_CHECK_SHAPE
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, n))
+                            .astype(np.int32)).cuda()
+    kw = {} if frames is None else {"frames": frames[:b]}
+    with torch.inference_mode():
+        want, _ = lm.prefill(params, toks, **kw)
+        _, caches = lm.prefill(params, toks[:, :-1], **kw)
+        got, _ = lm.decode_step(params, toks[:, -1:], caches, n - 1)
+    err = float((got - want).abs().max() / want.abs().max())
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    out = {"shape": [b, n], "layers": cfg.num_layers, "rel_err": err,
+           "bound": LM_CHECK_REL, "argmax_equal": same,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if not (math.isfinite(err) and err < LM_CHECK_REL and same):
+        fail(f"lm {cname}: decode after prefill differs from the "
+             f"prefill's logits: {out}")
+    del lm, params, caches, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_row(cname, cfg):
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    return {"config": cname, "layers": cfg.num_layers,
+            "attention_layers": kinds.count("attn"),
+            "mamba_layers": kinds.count("mamba"),
+            "blocks": {k: kinds.count(k) for k in sorted(set(kinds))},
+            "d_model": cfg.d_model, "act_dtype": cfg.act_dtype}
+
+
+def _check_launches(cname, kc, need, totals):
+    """The kernels a counted run launched must be ``need``'s, no other;
+    they add to ``totals``."""
+    for k, n in need.items():
+        if kc.get(k, 0) != n:
+            fail(f"lm {cname}: {k} launched {kc.get(k, 0)} times, "
+                 f"expected {n}")
+    other = {k: n for k, n in kc.items() if n and k not in need}
+    if other:
+        fail(f"lm {cname}: unexpected kernel launches {other}")
+    for k, n in kc.items():
+        totals[k] += n
+
+
 def lm_phase(torch, np, totals):
     """Phase 3e: the LM serving path on the card (module docstring).
 
-    Adds each kernel's launches in the counted ``serve`` runs to
-    ``totals`` and returns the inputs the kernels got there (the largest
-    flash_attention call per configuration, the largest ssm_scan call),
+    Adds each kernel's launches in the counted runs to ``totals`` and
+    returns the inputs the kernels got there (the largest flash_attention
+    call per configuration and mode, the largest ssm_scan call),
     recorded in one more prefill after the timed runs."""
     from dataclasses import replace
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels import flash_attention as fa_kernel
-    from repro_torch.kernels import ssm_scan as ssm_kernel
-    from repro_torch.launch.serve import Request, Server
-    from repro_torch.ml.transformer import LM
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     jamba = get_config("jamba_v0_1_52b")
-    configs = {"smollm_360m": get_config("smollm_360m"),
+    configs = {"smollm_360m": (get_config("smollm_360m"), _served),
                # one block cycle: 52B params (~104 GB in bf16) do not fit
-               "jamba_v0_1_52b[8 of 32 layers]": replace(jamba,
-                                                        num_layers=8)}
+               "jamba_v0_1_52b[8 of 32 layers]": (
+                   replace(jamba, num_layers=8), _served),
+               "xlstm_1_3b": (get_config("xlstm_1_3b"), _served),
+               "whisper_large_v3": (get_config("whisper_large_v3"),
+                                    _transcribed)}
     inputs = {"flash_attention": {}, "ssm_scan": None}
+    expected = set()
+    for cname, (cfg, start) in configs.items():
+        expected |= _lm_config(torch, np, cname, cfg, start, totals, inputs)
+    if inputs["ssm_scan"] is None or set(inputs["flash_attention"]) \
+            != expected:
+        fail(f"lm: the kernels' inputs were not recorded: "
+             f"{sorted(inputs['flash_attention'])} for {sorted(expected)}")
+    return inputs
 
-    def sync_ms(t0):
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
 
-    for cname, cfg in configs.items():
+def _served(torch, np, cfg):
+    """A decoder-only configuration of phase 3e, through ``Server``: the
+    model (:func:`_lm_config`'s ``start``) and its plan — 8 requests of
+    64-512 random tokens, 16 new tokens each, ``max_batch`` 4; the warm
+    window one ``generate_batch`` of the first 4 prompts."""
+    from repro_torch.launch.serve import Request, Server
+    srv = Server(cfg, reduced=False, max_batch=LM_MAX_BATCH)
+
+    def plan(rng):
         kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
-        n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
-        row = {"config": cname, "layers": cfg.num_layers,
-               "attention_layers": n_attn, "mamba_layers": n_mamba,
-               "d_model": cfg.d_model, "act_dtype": cfg.act_dtype}
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        srv = Server(cfg, reduced=False, max_batch=LM_MAX_BATCH)
-        row["init_ms"] = sync_ms(t0)
-        row["param_bytes"] = sum(
-            t.numel() * t.element_size() for t in _leaves(srv.params))
-        row["param_count"] = sum(t.numel() for t in _leaves(srv.params))
-        rng = np.random.default_rng(0)
         lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1,
                             LM_REQUESTS)
         reqs = [Request(i, rng.integers(0, cfg.vocab_size, n
@@ -1623,126 +1791,195 @@ def lm_phase(torch, np, totals):
         # serve() prefills max_batch newly admitted prompts at a time
         batches = [lens[i:i + LM_MAX_BATCH]
                    for i in range(0, LM_REQUESTS, LM_MAX_BATCH)]
-        need = {"flash_attention": n_attn * len(batches),
-                "ssm_scan": n_mamba * sum(
+        need = {"flash_attention": kinds.count("attn") * len(batches),
+                "ssm_scan": kinds.count("mamba") * sum(
                     math.ceil(int(max(b)) / LM_SSM_CHUNK) for b in batches)}
-        ops.reset_launch_counts()
-        _build.reset_kernel_launches()
-        t0 = time.perf_counter()
-        srv.serve(reqs)
-        row["serve_ms"] = sync_ms(t0)
-        kc = _build.kernel_launches()
-        for k, n in need.items():
-            if kc.get(k, 0) != n:
-                fail(f"lm {cname}: {k} launched {kc.get(k, 0)} times in "
-                     f"serve, expected {n}")
-            totals[k] += kc.get(k, 0)
-        for r in reqs:
-            if not (r.done and len(r.out) == LM_MAX_NEW
-                    and all(0 <= t < cfg.vocab_size for t in r.out)):
-                fail(f"lm {cname}: request {r.rid} gave {r.out}")
-        row.update(requests=LM_REQUESTS, prompt_lens=[int(n) for n in lens],
-                   tokens_out=sum(len(r.out) for r in reqs),
-                   serve_kernels=kc, serve_dispatches=ops.launch_counts(),
-                   serve_peak_bytes=torch.cuda.max_memory_allocated(),
-                   stats=dict(srv.stats))
-        row["serve_tokens_per_s"] = row["tokens_out"] / row["serve_ms"] * 1e3
 
-        # warm: one batch of the first max_batch prompts, timed in parts
+        def run():
+            srv.serve(reqs)
+            for r in reqs:
+                if not (r.done and len(r.out) == LM_MAX_NEW
+                        and all(0 <= t < cfg.vocab_size for t in r.out)):
+                    fail(f"lm {cfg.name}: request {r.rid} gave {r.out}")
+            return {"requests": LM_REQUESTS,
+                    "prompt_lens": [int(n) for n in lens],
+                    "tokens_out": sum(len(r.out) for r in reqs),
+                    "stats": dict(srv.stats)}
+
         prompts = [r.prompt for r in reqs[:LM_MAX_BATCH]]
-        s = max(p.shape[0] for p in prompts)
-        toks = np.zeros((len(prompts), s), np.int32)
-        for i, p in enumerate(prompts):
-            toks[i, s - p.shape[0]:] = p
-        toks = torch.from_numpy(toks).cuda()
-        with torch.inference_mode():
-            srv.lm.prefill(srv.params, toks)             # warm
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, caches = srv.lm.prefill(srv.params, toks)
-            row["prefill_ms"] = sync_ms(t0)
-            cur = torch.argmax(logits, dim=-1).to(torch.int32)
-            t0 = time.perf_counter()
-            for t in range(LM_MAX_NEW - 1):
-                logits, caches = srv.lm.decode_step(srv.params, cur, caches,
-                                                    s + t)
-                cur = torch.argmax(logits, dim=-1).to(torch.int32)
-            row["decode_ms_per_step"] = sync_ms(t0) / (LM_MAX_NEW - 1)
-            del caches
-        row["warm_batch"] = [len(prompts), s]
-        row["warm_tokens_per_s"] = len(prompts) * LM_MAX_NEW / (
-            row["prefill_ms"] + (LM_MAX_NEW - 1) * row["decode_ms_per_step"]
-        ) * 1e3
-        srv.generate_batch(prompts, max_new=LM_MAX_NEW)
+        big = max(batches, key=lambda b: int(max(b)))
+        return {"run": run, "need": need,
+                "toks": torch.from_numpy(_pad_left(np, prompts)).cuda(),
+                "kw": {},
+                "generate": lambda: srv.generate_batch(prompts,
+                                                       max_new=LM_MAX_NEW),
+                # the largest prefill of the run, at random tokens
+                "record": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (len(big), int(max(big))))
+                    .astype(np.int32)).cuda()}
 
-        def warm_batch():
+    return srv.lm, srv.params, plan
+
+
+def _transcribed(torch, np, cfg):
+    """Phase 3e's encoder-decoder, Whisper large-v3 (``Server`` takes no
+    frames, as the reference's takes none): seeded frame embeddings [4,
+    1500, 1280] bf16 and 4 decoder prompts of 4-224 tokens left-padded,
+    through ``LM.prefill(frames=)`` and 15 greedy ``decode_step``s; 96
+    flash_attention launches a prefill (the encoder's self, the decoder's
+    causal self and cross attention, a layer each)."""
+    from repro_torch.ml.transformer import LM
+    lm = LM(cfg)
+    params = lm.init(seed=0, device="cuda")
+
+    def plan(rng):
+        b, se = WHISPER_FRAMES
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        frames = torch.randn((b, se, cfg.d_model), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+        lens = rng.integers(WHISPER_PROMPT_LENS[0],
+                            WHISPER_PROMPT_LENS[1] + 1, b)
+        toks = torch.from_numpy(_pad_left(np, [
+            rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lens])).cuda()
+        s = toks.shape[1]
+
+        def generate():
+            """Prefill and greedy decode → [B, LM_MAX_NEW] tokens."""
+            with torch.inference_mode():
+                logits, caches = lm.prefill(params, toks, frames=frames)
+                cur = torch.argmax(logits, dim=-1).to(torch.int32)
+                out = [cur]
+                for t in range(LM_MAX_NEW - 1):
+                    logits, caches = lm.decode_step(params, cur, caches,
+                                                    s + t)
+                    cur = torch.argmax(logits, dim=-1).to(torch.int32)
+                    out.append(cur)
+            return torch.cat(out, dim=1)
+
+        def run():
+            got = generate().cpu()
+            if got.shape != (b, LM_MAX_NEW) or not bool(
+                    ((got >= 0) & (got < cfg.vocab_size)).all()):
+                fail(f"lm {cfg.name}: generated {got.tolist()}")
+            return {"encoder_layers": cfg.encoder_layers,
+                    "frames": [b, se, cfg.d_model],
+                    "prompt_lens": [int(n) for n in lens],
+                    "tokens_out": int(got.numel())}
+
+        return {"run": run, "generate": generate, "toks": toks, "record": toks,
+                "kw": {"frames": frames},
+                "need": {"flash_attention": cfg.encoder_layers
+                         + 2 * cfg.num_layers, "ssm_scan": 0}}
+
+    return lm, params, plan
+
+
+def _lm_config(torch, np, cname, cfg, start, totals, inputs):
+    """One configuration of phase 3e, the same steps for each.
+
+    ``start(torch, np, cfg)`` builds the model on the card (timed as
+    init) → (lm, params, plan); ``plan(rng)`` → ``run``, the counted run
+    (it checks its own output and returns its fields of the row,
+    ``tokens_out`` among them), ``need``, the kernel launches that run
+    must make, ``toks``, the warm batch's left-padded prompts, ``kw``,
+    the prefill's other arguments (Whisper's frames), ``generate``, the
+    warm window, and ``record``, the tokens of the prefill whose kernel
+    inputs are recorded.  Then the warm batch's prefill and decode steps
+    are timed, the warm window profiled (with an sLSTM block its decode
+    steps alone: the profiler takes ~90 s to process a prefill's 2,670
+    sLSTM steps), the kernels' inputs recorded, and the float32
+    consistency checked.  Prints the ``lm`` line; returns the
+    flash_attention modes it recorded."""
+    from repro_torch.kernels import _build, ops
+
+    def sync_ms(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    t_row = time.perf_counter()
+    row = _lm_row(cname, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm, params, plan = start(torch, np, cfg)
+    row["init_ms"] = sync_ms(t0)
+    row["param_bytes"] = sum(t.numel() * t.element_size()
+                             for t in _leaves(params))
+    row["param_count"] = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    p = plan(rng)
+    toks, kw = p["toks"], p["kw"]
+    ops.reset_launch_counts()
+    _build.reset_kernel_launches()
+    t0 = time.perf_counter()
+    fields = p["run"]()
+    row["serve_ms"] = sync_ms(t0)
+    kc = _build.kernel_launches()
+    _check_launches(cname, kc, p["need"], totals)
+    row.update(fields, serve_kernels=kc, serve_dispatches=ops.launch_counts(),
+               serve_peak_bytes=torch.cuda.max_memory_allocated())
+    row["serve_tokens_per_s"] = row["tokens_out"] / row["serve_ms"] * 1e3
+
+    # warm: the batch's prefill and decode steps, timed in parts
+    b, s = toks.shape
+    with torch.inference_mode():
+        if "frames" in kw:
             t0 = time.perf_counter()
-            srv.generate_batch(prompts, max_new=LM_MAX_NEW)
+            lm.encode(params, kw["frames"])
+            row["encode_ms"] = sync_ms(t0)
+        lm.prefill(params, toks, **kw)                   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = lm.prefill(params, toks, **kw)
+        row["prefill_ms"] = sync_ms(t0)
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+
+        def decode_steps():
+            t0, cur, c = time.perf_counter(), first, caches
+            with torch.inference_mode():
+                for t in range(LM_MAX_NEW - 1):
+                    out, c = lm.decode_step(params, cur, c, s + t)
+                    cur = torch.argmax(out, dim=-1).to(torch.int32)
             return sync_ms(t0)
 
-        wall, busy = _profiled(torch, warm_batch)
-        row.update(profiled_wall_ms=wall, **busy)
+        row["decode_ms_per_step"] = decode_steps() / (LM_MAX_NEW - 1)
+    row["warm_batch"] = [b, s]
+    row["warm_tokens_per_s"] = b * LM_MAX_NEW / (
+        row["prefill_ms"] + (LM_MAX_NEW - 1) * row["decode_ms_per_step"]
+    ) * 1e3
 
-        # the kernels' inputs on this path: one more prefill, recorded
-        def recorder(key, fn):
-            def call(*args, **kw):
-                if key == "flash_attention":
-                    best = inputs[key].get(cname)
-                    if best is None or best[0][0].numel() < args[0].numel():
-                        inputs[key][cname] = (tuple(a.clone() for a in args),
-                                              dict(kw))
-                else:
-                    best = inputs[key]
-                    if best is None or best[0].numel() <= args[0].numel():
-                        inputs[key] = tuple(
-                            a.clone() if a is not None else None
-                            for a in (args + (None,) * 3)[:3])
-                return fn(*args, **kw)
-            return call
-
-        orig = (fa_kernel.flash_attention, ssm_kernel.ssm_scan)
-        fa_kernel.flash_attention = recorder("flash_attention", orig[0])
-        ssm_kernel.ssm_scan = recorder("ssm_scan", orig[1])
-        try:
-            with torch.inference_mode():
-                big = max(batches, key=lambda b: int(max(b)))
-                srv.lm.prefill(srv.params, torch.from_numpy(
-                    rng.integers(0, cfg.vocab_size, (len(big), int(max(big))))
-                    .astype(np.int32)).cuda())
-        finally:
-            fa_kernel.flash_attention, ssm_kernel.ssm_scan = orig
-        del srv, logits
-        torch.cuda.empty_cache()
-
-        # prefill (kernels) vs decode (plain) in float32, dropless MoE
-        cfg32 = replace(cfg, act_dtype="float32")
-        if cfg.moe_experts:
-            cfg32 = replace(cfg32, moe_capacity_factor=float(
-                cfg.moe_experts))
-        torch.cuda.reset_peak_memory_stats()
-        lm = LM(cfg32)
-        params = lm.init(seed=0, device="cuda")
-        b, n = LM_CHECK_SHAPE
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, n))
-                                .astype(np.int32)).cuda()
+    if "slstm" in cfg.block_pattern:
+        row["profile_window"] = f"{LM_MAX_NEW - 1} decode steps"
         with torch.inference_mode():
-            want, _ = lm.prefill(params, toks)
-            _, caches = lm.prefill(params, toks[:, :-1])
-            got, _ = lm.decode_step(params, toks[:, -1:], caches, n - 1)
-        err = float((got - want).abs().max() / want.abs().max())
-        same = bool((got.argmax(-1) == want.argmax(-1)).all())
-        row["consistency"] = {"shape": [b, n], "rel_err": err,
-                              "bound": LM_CHECK_REL, "argmax_equal": same,
-                              "peak_bytes": torch.cuda.max_memory_allocated()}
-        if not (math.isfinite(err) and err < LM_CHECK_REL and same):
-            fail(f"lm {cname}: decode after prefill differs from the "
-                 f"prefill's logits: {row['consistency']}")
-        del lm, params, caches, got, want
-        torch.cuda.empty_cache()
-        print("lm " + json.dumps(row))
-    if inputs["ssm_scan"] is None or len(inputs["flash_attention"]) != 2:
-        fail("lm: the kernels' inputs were not recorded")
-    return inputs
+            _, caches = lm.prefill(params, toks, **kw)
+            window = decode_steps
+    else:
+        row["profile_window"] = "generate"
+        p["generate"]()                                  # warm
+
+        def window():
+            t0 = time.perf_counter()
+            p["generate"]()
+            return sync_ms(t0)
+
+    t_prof = time.perf_counter()
+    wall, busy = _profiled(torch, window)
+    row.update(profiled_wall_ms=wall, profile_s=time.perf_counter() - t_prof,
+               **busy)
+    del caches, logits
+    _record_inputs(torch, inputs, cname,
+                   lambda: lm.prefill(params, p["record"], **kw))
+    del lm, params, plan, p          # the float32 check needs the room
+    torch.cuda.empty_cache()
+    row["consistency"] = _lm_consistency(
+        torch, np, cname, cfg, rng, frames=kw.get("frames"))
+    row["seconds"] = time.perf_counter() - t_row
+    print("lm " + json.dumps(row))
+    modes = {cname} if row["attention_layers"] else set()
+    if cfg.encoder_layers:
+        modes |= {f"{cname} encoder", f"{cname} cross"}
+    return modes
 
 
 #: phase 3g: the §5 loop (examples/ml_workflow.py) and the LM train step

@@ -25,7 +25,8 @@ __all__ = ["key64", "split64", "popcount_words", "bitset_binary_ref",
            "mask_prefix_sum_ref", "compact_ref", "compact_batched_ref",
            "segment_agg_ref", "refine_tracks_batched_ref",
            "refine_tracks_multi_ref", "refine_no_hits", "FH_NONE",
-           "LH_NONE", "flash_attention_ref", "ssm_scan_ref"]
+           "LH_NONE", "flash_attention_ref", "FLASH_REL", "flash_tolerance",
+           "ssm_scan_ref"]
 
 _LO32 = 0xFFFFFFFF
 _TOP = -(1 << 63)                       # int64 with only bit 63 set
@@ -296,6 +297,26 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window=None,
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+#: flash_attention against this plain version, by output dtype.  bf16: one
+#: ulp at the bottom of a binade (2^-7): both round the output once, and
+#: the tensor-core kernel rounds P to bf16 before P·V (2^-9 a term, which
+#: averages out over the keys).  float32 (SIMT): an exp approximation and
+#: another summation order; ``FLASH_CASES`` in ``tests/test_torch_cuda.py``
+#: hold it at 2^-12.
+FLASH_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 2.0 ** -12}
+
+
+def flash_tolerance(want):
+    """(atol, rtol) that hold a flash_attention output to ``want``, its
+    plain version: rtol is ``FLASH_REL`` (an ulp of the element in bf16),
+    atol the same share of max |want| (an ulp of the largest element), so
+    the bound scales with the tensor compared.  Two bf16 ulps of an
+    element always pass; a kernel that drops the partial last key tile at
+    Whisper's encoder inputs does not (``tests/test_torch_lm.py``)."""
+    rel = FLASH_REL[want.dtype]
+    return rel * float(want.float().abs().max()), rel
 
 
 # ------------------------------------------------------------- SSM scan

@@ -92,7 +92,8 @@ class ModelBundle:
         leaves = tree_leaves(live)
         with torch.enable_grad():
             hid, aux = lm.hidden(live, batch["tokens"],
-                                 batch.get("positions"))
+                                 batch.get("positions"),
+                                 batch.get("frames"))
             loss = chunked_lm_loss(hid, lm.head(live), batch["labels"],
                                    chunk=tc.loss_chunk)
             total = loss + tc.moe_lb_weight * aux["load_balance"] \
@@ -107,7 +108,8 @@ class ModelBundle:
     def make_train_step(self):
         """→ ``train_step(params, opt_state, batch)`` → (new params, new
         opt state, metrics).  ``batch`` holds ``tokens`` and ``labels``
-        [B, S] (and M-RoPE ``positions`` [3, B, S]) on the params' device.
+        [B, S] (and M-RoPE ``positions`` [3, B, S], an encoder-decoder
+        config's ``frames`` [B, Se, D]) on the params' device.
         The inputs are not modified."""
         tc = self.train_cfg
         lr_fn = cosine_schedule(tc.lr, tc.warmup, tc.total_steps)
@@ -137,7 +139,8 @@ class ModelBundle:
         lm = self.lm
 
         def prefill(params, batch):
-            return lm.prefill(params, batch["tokens"])
+            return lm.prefill(params, batch["tokens"],
+                              frames=batch.get("frames"))
 
         return prefill
 

@@ -1,4 +1,4 @@
-"""Unified LM: dense / MoE / SSM-hybrid from one ArchConfig.
+"""Unified LM: dense / MoE / SSM / hybrid / enc-dec from one ArchConfig.
 
 The port of ``repro/ml/transformer.py``.  Layers form *pattern groups*: a
 group is one cycle of ``block_pattern`` × ``attention_pattern`` (e.g.
@@ -10,9 +10,19 @@ reference's ``lax.scan`` over groups becomes a Python loop.
 Entry points:
   * ``hidden`` / ``apply`` — training forward → final hidden states or
                       logits [B, S, V] (float32), and aux losses
+  * ``encode``      — the Whisper encoder over frame embeddings [B, Se, D]
   * ``prefill``     — forward over a prompt, returns last-token logits +
-                      filled caches (KV for attn, state for SSM)
+                      filled caches (KV for attn, cross KV for enc-dec,
+                      state for Mamba and xLSTM)
   * ``decode_step`` — one token against caches, updated in place
+
+Block kinds: ``attn``, ``mamba``, and xLSTM's ``mlstm`` / ``slstm``
+(``ml/xlstm.py``, plain PyTorch on every path, as the reference's are
+plain jnp).  An encoder-decoder config (``encoder_layers > 0``, Whisper)
+runs ``encode`` first; its decoder's attention blocks cross-attend to the
+encoder's output (non-causal, through ``kops.flash_attention`` on the
+kernel path) and its cross K/V go into the decode caches.  The conv front
+end is a stub in the reference too: ``frames`` are embeddings.
 
 ``impl`` picks the full-sequence paths, as the reference's ``LM(impl=)``
 does: ``"kernel"`` (the default, what ``launch.serve`` runs) sends
@@ -30,9 +40,6 @@ output (selective checkpointing of ``aten.mm``/``bmm``, the reference's
 ``dots_saveable``).  The reference also checkpoints each layer group
 around its blocks; the port checkpoints the blocks only.  Gradients do
 not change with ``remat``.
-
-Not ported yet (ROADMAP A11): the xLSTM blocks (``mlstm``/``slstm``) and
-the Whisper encoder; an ``LM`` of such a config raises.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ArchConfig
 from . import attention as A
 from . import mamba as Mb
+from . import xlstm as X
 from .layers import (dense_init, embed_init, layer_norm, mlp_apply,
                      mlp_init, norm_init, rms_norm)
 from .moe import moe_apply, moe_init
@@ -55,6 +63,9 @@ from .params import act_dtype, cast_params, tree_map
 __all__ = ["LM", "cycle_len"]
 
 IMPLS = ("kernel", "reference")
+KINDS = ("attn", "mamba", "mlstm", "slstm")
+#: rows of the learned position table (``pos="learned"``)
+MAX_LEARNED_POS = 32768
 REMATS = ("none", "dots", "full")
 
 #: the matrix products "dots" keeps through a block's checkpoint
@@ -105,8 +116,9 @@ def _stack(trees):
 # ---------------------------------------------------------------- init
 
 def _block_init(gen: torch.Generator, cfg: ArchConfig, slot: int,
-                dtype: Optional[torch.dtype] = None):
-    kind, spec, is_moe, _ = _slot_info(cfg, slot)
+                dtype: Optional[torch.dtype] = None, *, cross: bool = False,
+                decoder: bool = True):
+    kind, spec, is_moe, _ = _slot_info(cfg, slot, decoder=decoder)
     dev = gen.device
     p: Dict[str, Any] = {"norm1": norm_init(cfg.d_model, dev)}
     if cfg.norm == "layernorm":
@@ -116,9 +128,17 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, slot: int,
     elif kind == "mamba":
         p["mamba"] = Mb.mamba_init(gen, cfg.d_model, expand=cfg.ssm_expand,
                                    state=cfg.ssm_state, conv=cfg.ssm_conv)
+    elif kind == "mlstm":
+        p["cell"] = X.mlstm_init(gen, cfg.d_model, cfg.num_heads)
+    elif kind == "slstm":
+        p["cell"] = X.slstm_init(gen, cfg.d_model, cfg.num_heads)
     else:
         raise ValueError(kind)
-    if cfg.d_ff > 0:
+    if cross and kind == "attn":
+        # no bias on the cross-attention norm, as in the reference
+        p["normx"] = norm_init(cfg.d_model, dev)
+        p["xattn"] = A.attn_init(gen, spec)
+    if cfg.d_ff > 0 and kind in ("attn", "mamba"):
         p["norm2"] = norm_init(cfg.d_model, dev)
         if cfg.norm == "layernorm":
             p["norm2"]["bias"] = torch.zeros((cfg.d_model,), device=dev)
@@ -161,17 +181,30 @@ def _mlp_tail(cfg: ArchConfig, x, p):
     return x + mlp_apply(h2, p["mlp"], cfg.act), None
 
 
-def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
-                 impl: str = "kernel", return_state: bool = False):
-    """Full-sequence forward for one layer.
+def _project_cross_kv(enc_out, p_attn, spec):
+    """Project encoder states with a block's wk/wv → [B, Hkv, Se, hd]
+    (views; ``_attention`` makes them contiguous for the kernel)."""
+    be, se, _ = enc_out.shape
+    shape = (be, se, spec.num_kv_heads, spec.head_dim)
+    kx = (enc_out @ p_attn["wk"].to(enc_out.dtype)).reshape(shape)
+    vx = (enc_out @ p_attn["wv"].to(enc_out.dtype)).reshape(shape)
+    return kx.transpose(1, 2), vx.transpose(1, 2)
 
-    Returns (x, aux, extras): extras is {k, v} for attn layers or the
-    final recurrent state for Mamba layers (when ``return_state``),
-    feeding prefill cache construction.
+
+def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
+                 enc_out=None, impl: str = "kernel", decoder: bool = True,
+                 return_state: bool = False):
+    """Full-sequence forward for one layer (an encoder layer when not
+    ``decoder``: non-causal).
+
+    Returns (x, aux, extras): extras is {k, v[, cross_k, cross_v]} for
+    attn layers or the final recurrent state for Mamba and xLSTM layers
+    (when ``return_state``), feeding prefill cache construction.
     """
-    kind, spec, _, _ = _slot_info(cfg, slot)
+    kind, spec, _, _ = _slot_info(cfg, slot, decoder=decoder)
+    nrm = _norm(cfg)
     in_dtype = x.dtype
-    h = _norm(cfg)(x, p["norm1"], cfg.norm_eps)
+    h = nrm(x, p["norm1"], cfg.norm_eps)
     extras = None
     if kind == "attn":
         rope_pos = positions if cfg.pos == "rope" else None
@@ -182,12 +215,28 @@ def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
         out = out.transpose(1, 2).reshape(b_, s_, -1)
         x = x + out @ p["attn"]["wo"].to(out.dtype)
         extras = {"k": k, "v": v}
-    else:
+        if enc_out is not None and "xattn" in p:
+            hx = nrm(x, p["normx"], cfg.norm_eps)
+            qx, _, _ = A._project_qkv(hx, p["xattn"], spec, None)
+            kx, vx = _project_cross_kv(enc_out, p["xattn"], spec)
+            xo = A._attention(qx, kx, vx, causal=False, window=None,
+                              softcap=None, scale=None, impl=impl)
+            xo = xo.transpose(1, 2).reshape(b_, s_, -1)
+            x = x + xo @ p["xattn"]["wo"].to(xo.dtype)
+            extras["cross_k"], extras["cross_v"] = kx, vx
+    elif kind == "mamba":
         if return_state:
             y, extras = Mb.mamba_apply(h, p["mamba"], return_state=True,
                                        impl=impl)
         else:
             y = Mb.mamba_apply(h, p["mamba"], impl=impl)
+        x = x + y
+    else:
+        cell = X.mlstm_apply if kind == "mlstm" else X.slstm_apply
+        if return_state:
+            y, extras = cell(h, p["cell"], cfg.num_heads, return_state=True)
+        else:
+            y = cell(h, p["cell"], cfg.num_heads)
         x = x + y
     x, aux = _mlp_tail(cfg, x, p)
     if aux is None:
@@ -200,8 +249,9 @@ def _block_decode(cfg: ArchConfig, slot: int, x, p, cache, pos: int):
     """Single-token step; writes the new position or state into ``cache``
     (views of the stacked caches) in place and returns x."""
     kind, spec, _, window = _slot_info(cfg, slot)
+    nrm = _norm(cfg)
     in_dtype = x.dtype
-    h = _norm(cfg)(x, p["norm1"], cfg.norm_eps)
+    h = nrm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
         b = x.shape[0]
         rolling = window is not None
@@ -218,10 +268,22 @@ def _block_decode(cfg: ArchConfig, slot: int, x, p, cache, pos: int):
             window=window, softcap=spec.softcap, rolling=rolling)
         out = out.transpose(1, 2).reshape(b, 1, -1)
         x = x + out @ p["attn"]["wo"].to(out.dtype)
+        if "cross_k" in cache and "xattn" in p:
+            hx = nrm(x, p["normx"], cfg.norm_eps)
+            qx, _, _ = A._project_qkv(hx, p["xattn"], spec, None)
+            xo = A.decode_attention(
+                qx, {"k": cache["cross_k"], "v": cache["cross_v"],
+                     "len": cache["cross_k"].shape[2]})
+            xo = xo.transpose(1, 2).reshape(b, 1, -1)
+            x = x + xo @ p["xattn"]["wo"].to(xo.dtype)
     else:
-        y, new = Mb.mamba_decode(h, p["mamba"], cache)
-        cache["h"].copy_(new["h"])
-        cache["conv"].copy_(new["conv"])
+        if kind == "mamba":
+            y, new = Mb.mamba_decode(h, p["mamba"], cache)
+        else:
+            cell = X.mlstm_decode if kind == "mlstm" else X.slstm_decode
+            y, new = cell(h, p["cell"], cfg.num_heads, cache)
+        for name, t in new.items():
+            cache[name].copy_(t)
         x = x + y
     x, _ = _mlp_tail(cfg, x, p)
     return x.to(in_dtype)
@@ -233,16 +295,9 @@ class LM:
     def __init__(self, cfg: ArchConfig, *, impl: str = "kernel",
                  remat: str = "none"):
         kinds = set(cfg.block_pattern)
-        if kinds & {"mlstm", "slstm"}:
-            raise NotImplementedError(
-                f"{cfg.name}: the xLSTM blocks (mlstm/slstm) are not "
-                "ported yet (ROADMAP A11)")
-        if cfg.encoder_layers > 0 or cfg.pos == "learned":
-            raise NotImplementedError(
-                f"{cfg.name}: the Whisper encoder and learned positions "
-                "are not ported yet (ROADMAP A11)")
-        if not kinds <= {"attn", "mamba"}:
-            raise ValueError(f"{cfg.name}: unknown block kinds {kinds}")
+        if not kinds <= set(KINDS):
+            raise ValueError(f"{cfg.name}: unknown block kinds "
+                             f"{sorted(kinds - set(KINDS))}")
         if impl not in IMPLS:
             raise ValueError(f"impl {impl!r}: expected one of {IMPLS}")
         if remat not in REMATS:
@@ -264,22 +319,42 @@ class LM:
         (``torch.float32`` for training)."""
         cfg = self.cfg
         gen = torch.Generator(device=device).manual_seed(seed)
+        dev = gen.device
         p: Dict[str, Any] = {"embed": embed_init(gen, cfg.vocab_size,
                                                  cfg.d_model)}
-        p["blocks"] = {f"slot{s}": _stack([_block_init(gen, cfg, s, dtype)
+        if cfg.pos == "learned":
+            p["pos_embed"] = torch.randn((MAX_LEARNED_POS, cfg.d_model),
+                                         generator=gen, device=dev) * 0.02
+        cross = cfg.encoder_layers > 0
+        p["blocks"] = {f"slot{s}": _stack([_block_init(gen, cfg, s, dtype,
+                                                       cross=cross)
                                            for _ in range(self.groups)])
                        for s in range(self.cyc)}
-        p["final_norm"] = norm_init(cfg.d_model, gen.device)
+        if cross:
+            p["enc_blocks"] = _stack([_block_init(gen, cfg, 0, dtype,
+                                                  decoder=False)
+                                      for _ in range(cfg.encoder_layers)])
+            p["enc_norm"] = norm_init(cfg.d_model, dev)
+            p["enc_in"] = dense_init(gen, cfg.d_model, cfg.d_model)
+        p["final_norm"] = norm_init(cfg.d_model, dev)
         if cfg.norm == "layernorm":
-            p["final_norm"]["bias"] = torch.zeros((cfg.d_model,),
-                                                  device=gen.device)
+            p["final_norm"]["bias"] = torch.zeros((cfg.d_model,), device=dev)
+            if cross:
+                p["enc_norm"]["bias"] = torch.zeros((cfg.d_model,),
+                                                    device=dev)
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size)
         return _cast(cfg, p, dtype)
 
     # --------------------------------------------------------- helpers
-    def _embed(self, p, tokens):
-        return p["embed"][tokens.long()].to(act_dtype(self.cfg))
+    def _embed(self, p, tokens, positions):
+        cfg = self.cfg
+        adt = act_dtype(cfg)
+        x = p["embed"][tokens.long()].to(adt)
+        if cfg.pos == "learned":
+            pos = positions if positions.dim() == 2 else positions[0]
+            x = x + p["pos_embed"][pos.long()].to(adt)
+        return x
 
     def head(self, p):
         return p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]
@@ -289,13 +364,22 @@ class LM:
         reference's ``dot_general`` with float32 accumulation)."""
         return x.float() @ self.head(p).to(x.dtype).float()
 
+    def _enc_out(self, p, frames):
+        """The encoder's output for an encoder-decoder config, else
+        None."""
+        if self.cfg.encoder_layers == 0:
+            return None
+        if frames is None:
+            raise ValueError(f"{self.cfg.name} needs frame embeddings")
+        return self.encode(p, frames)
+
     # ------------------------------------------------------------ apply
-    def _block(self, sl: int, x, gp, positions):
+    def _block(self, sl: int, x, gp, positions, enc_out):
         """One block of the training forward, under ``remat``'s
         checkpoint → (x, load-balance loss, router z-loss)."""
         def one(x):
             y, aux, _ = _block_apply(self.cfg, sl, x, gp, positions,
-                                     impl=self.impl)
+                                     enc_out=enc_out, impl=self.impl)
             return y, aux["load_balance"], aux["router_z"]
 
         if self.remat == "none":
@@ -306,34 +390,56 @@ class LM:
                                        _save_dots)
         return checkpoint(one, x, use_reentrant=False, **kw)
 
-    def hidden(self, p, tokens, positions=None):
-        """Forward up to the final norm → (hidden, aux dict)."""
+    def hidden(self, p, tokens, positions=None, frames=None):
+        """Forward up to the final norm → (hidden, aux dict).  An
+        encoder-decoder config needs ``frames`` [B, Se, D]."""
         cfg = self.cfg
         b, s = tokens.shape
         if positions is None:
             positions = _positions_for(cfg, b, s, device=tokens.device)
-        x = self._embed(p, tokens)
+        x = self._embed(p, tokens, positions)
+        enc_out = self._enc_out(p, frames)
         lb = torch.zeros((), dtype=torch.float32, device=x.device)
         rz = torch.zeros((), dtype=torch.float32, device=x.device)
         for g in range(self.groups):
             grp = _index(p["blocks"], g)
             for sl in range(self.cyc):
                 x, lb_, rz_ = self._block(sl, x, grp[f"slot{sl}"],
-                                          positions)
+                                          positions, enc_out)
                 lb = lb + lb_
                 rz = rz + rz_
         x = _norm(cfg)(x, p["final_norm"], cfg.norm_eps)
         return x, {"load_balance": lb, "router_z": rz}
 
-    def apply(self, p, tokens, positions=None):
+    def apply(self, p, tokens, positions=None, frames=None):
         """Forward → (logits [B,S,V] float32, aux dict)."""
-        x, aux = self.hidden(p, tokens, positions)
+        x, aux = self.hidden(p, tokens, positions, frames)
         return self._logits(p, x), aux
 
+    def encode(self, p, frames):
+        """The Whisper encoder over precomputed frame embeddings [B, Se,
+        D] → [B, Se, D]: ``enc_in``, the learned positions added in bf16
+        whatever the activation dtype (as the reference adds them), the
+        encoder layers (non-causal), ``enc_norm``."""
+        cfg = self.cfg
+        adt = act_dtype(cfg)
+        x = frames.to(adt) @ p["enc_in"].to(adt)
+        b, s, _ = x.shape
+        positions = _positions_for(cfg, b, s, device=x.device)
+        if cfg.pos == "learned":
+            x = x + p["pos_embed"][:s].to(torch.bfloat16)
+        for e in range(cfg.encoder_layers):
+            x, _, _ = _block_apply(cfg, 0, x, _index(p["enc_blocks"], e),
+                                   positions, impl=self.impl, decoder=False)
+        return _norm(cfg)(x, p["enc_norm"], cfg.norm_eps)
+
     # ---------------------------------------------------------- serving
-    def init_caches(self, batch: int, max_len: int, device="cuda"):
+    def init_caches(self, batch: int, max_len: int, device="cuda",
+                    enc_len: Optional[int] = None):
         """Stacked per-slot caches [G, ...] on ``device`` (the card unless
-        the caller asks for the CPU, as :meth:`init`)."""
+        the caller asks for the CPU, as :meth:`init`); an encoder-decoder
+        config's attention slots also hold cross K/V for ``enc_len``
+        encoder positions (``max_len`` if not given)."""
         cfg = self.cfg
         g = self.groups
         caches = {}
@@ -346,12 +452,26 @@ class LM:
                                       device=device),
                      "v": torch.zeros(shape, dtype=torch.bfloat16,
                                       device=device)}
-            else:
+                if cfg.encoder_layers > 0:
+                    xshape = (g, batch, cfg.num_kv_heads, enc_len or max_len,
+                              cfg.hd)
+                    for name in ("cross_k", "cross_v"):
+                        c[name] = torch.zeros(xshape, dtype=torch.bfloat16,
+                                              device=device)
+            elif kind == "mamba":
                 di = cfg.ssm_expand * cfg.d_model
                 c = {"h": torch.zeros((g, batch, di, cfg.ssm_state),
                                       device=device),
                      "conv": torch.zeros((g, batch, cfg.ssm_conv - 1, di),
                                          device=device)}
+            elif kind == "mlstm":     # mlstm_init's projection factor, 2
+                dh = 2 * cfg.d_model // cfg.num_heads
+                lead = (g, batch, cfg.num_heads)
+                c = {"C": torch.zeros((*lead, dh, dh), device=device),
+                     "n": torch.zeros((*lead, dh), device=device)}
+            else:
+                c = {k: torch.zeros((g, batch, cfg.d_model), device=device)
+                     for k in ("c", "n", "h", "m")}
             caches[f"slot{s}"] = c
         return caches
 
@@ -359,7 +479,9 @@ class LM:
         """tokens [B, 1], caches (stacked), pos int → (logits [B, 1, V],
         caches).  The caches are updated in place and returned."""
         cfg = self.cfg
-        x = self._embed(p, tokens)
+        positions = _positions_for(cfg, tokens.shape[0], 1, pos,
+                                   tokens.device)
+        x = self._embed(p, tokens, positions)
         for g in range(self.groups):
             grp = _index(p["blocks"], g)
             for sl in range(self.cyc):
@@ -369,35 +491,40 @@ class LM:
         x = _norm(cfg)(x, p["final_norm"], cfg.norm_eps)
         return self._logits(p, x[:, -1:, :]), caches
 
-    def prefill(self, p, tokens):
+    def prefill(self, p, tokens, frames=None):
         """Prompt forward → (last-token logits [B, 1, V], filled
-        caches)."""
+        caches).  An encoder-decoder config needs ``frames``."""
         cfg = self.cfg
         b, s = tokens.shape
         positions = _positions_for(cfg, b, s, device=tokens.device)
-        x = self._embed(p, tokens)
+        x = self._embed(p, tokens, positions)
+        enc_out = self._enc_out(p, frames)
         extras = {f"slot{sl}": [] for sl in range(self.cyc)}
         for g in range(self.groups):
             grp = _index(p["blocks"], g)
             for sl in range(self.cyc):
                 x, _, ex = _block_apply(cfg, sl, x, grp[f"slot{sl}"],
-                                        positions, impl=self.impl,
-                                        return_state=True)
+                                        positions, enc_out=enc_out,
+                                        impl=self.impl, return_state=True)
                 extras[f"slot{sl}"].append(ex)
         x = _norm(cfg)(x, p["final_norm"], cfg.norm_eps)
         logits = self._logits(p, x[:, -1:, :])
-        return logits, self._caches_from_prefill(extras, s, b, x.device)
+        enc_len = None if enc_out is None else enc_out.shape[1]
+        return logits, self._caches_from_prefill(extras, s, b, x.device,
+                                                 enc_len)
 
     def _caches_from_prefill(self, extras, s: int, b: int, device,
+                             enc_len: Optional[int] = None,
                              decode_budget: int = 1024):
         """Per-group extras → decode caches for ``decode_budget`` more
         tokens.
 
         Rolling (windowed) caches are laid out so that slot == abs_pos %
-        window, matching the modulo writes of ``decode_step``.
+        window, matching the modulo writes of ``decode_step``.  Cross K/V
+        are stored in bf16, as the reference stores them.
         """
         cfg = self.cfg
-        caches = self.init_caches(b, s + decode_budget, device)
+        caches = self.init_caches(b, s + decode_budget, device, enc_len)
         for sl in range(self.cyc):
             key = f"slot{sl}"
             kind, _, _, window = _slot_info(cfg, sl)
@@ -411,7 +538,11 @@ class LM:
                     n = k.shape[2]
                     caches[key]["k"][g, :, :, :n] = k.to(torch.bfloat16)
                     caches[key]["v"][g, :, :, :n] = v.to(torch.bfloat16)
-                else:
-                    caches[key]["h"][g] = ex["h"]
-                    caches[key]["conv"][g] = ex["conv"]
+                    for name in ("cross_k", "cross_v"):
+                        if name in ex:
+                            caches[key][name][g] = ex[name].to(
+                                torch.bfloat16)
+                else:                   # Mamba's or xLSTM's final state
+                    for name, t in ex.items():
+                        caches[key][name][g] = t
         return caches

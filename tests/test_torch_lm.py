@@ -56,6 +56,7 @@ from repro.ml.transformer import LM as JLM            # noqa: E402
 from repro_torch.configs import get_config           # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops                   # noqa: E402
+from repro_torch.kernels import ref as tref           # noqa: E402
 from repro_torch.launch import serve as tserve        # noqa: E402
 from repro_torch.ml import attention as TA            # noqa: E402
 from repro_torch.ml import layers as TLy              # noqa: E402
@@ -67,7 +68,8 @@ from repro_torch.ml.transformer import LM             # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
-#: every config made only of ported blocks (all but xLSTM and Whisper)
+#: every decoder-only config of attention, Mamba and MoE blocks (xLSTM
+#: and Whisper are held in tests/test_torch_models.py)
 PORTED = ["qwen1_5_0_5b", "gemma3_12b", "smollm_360m", "command_r_35b",
           "mixtral_8x7b", "llama4_scout_17b_a16e", "jamba_v0_1_52b",
           "qwen2_vl_7b"]
@@ -117,6 +119,10 @@ FA_CASES = [
     ((1, 2, 1, 256, 256, 64), {"window": 64}),
     ((1, 2, 2, 128, 128, 64), {"softcap": 30.0}),
     ((1, 2, 1, 192, 192, 64), {"window": 50, "softcap": 20.0}),
+    # Whisper's modes: encoder self-attention (non-causal, Sq = Skv not a
+    # multiple of the block) and cross-attention (Sq ≠ Skv, no mask)
+    ((1, 4, 4, 150, 150, 64), {"causal": False}),
+    ((2, 4, 4, 37, 150, 64), {"causal": False}),
 ]
 
 
@@ -142,6 +148,63 @@ def test_flash_attention_plain_vs_pallas_bf16():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got.float()), _np(pallas), rtol=3e-2,
                                atol=3e-2)
+
+
+class _Recorded(Exception):
+    pass
+
+
+def _whisper_encoder_qkv(monkeypatch):
+    """q, k, v of the first encoder layer of Whisper large-v3 at full width
+    (one encoder and one decoder layer) over frame embeddings [1, 1500,
+    1280] from a seed: the call phase 3e of ``chip_smoke.py`` records."""
+    cfg = replace(get_config("whisper_large_v3"), encoder_layers=1,
+                  num_layers=1)
+    lm = LM(cfg)
+    params = lm.init(seed=0, device="cpu")
+    frames = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 1500, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    seen = []
+
+    def record(q, k, v, **kw):
+        seen.append((q, k, v, kw))
+        raise _Recorded
+
+    monkeypatch.setattr(tfa, "flash_attention", record)
+    with pytest.raises(_Recorded), torch.inference_mode():
+        lm.encode(params, frames)
+    q, k, v, kw = seen[0]
+    assert not kw["causal"] and q.shape == (1, 20, 1500, 64)
+    return q, k, v
+
+
+@pytest.mark.parametrize("source", ["randn", "whisper_encoder"])
+def test_flash_tolerance_rejects_a_dropped_key_tile(source, monkeypatch):
+    """``ref.flash_tolerance``, the bound the card holds flash_attention
+    to, at Whisper's encoder shape (1500 = 23 × 64 + 28 keys): the
+    tensor-core kernel's arithmetic (P rounded to bf16 before P·V, the
+    output rounded once) passes it; a kernel that skips the last, partial
+    key tile fails it on over a third of the elements."""
+    if source == "randn":
+        rng = np.random.default_rng(20)
+        q, k, v = (torch.from_numpy(rng.normal(size=(1, 20, 1500, 64))
+                                    .astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(3))
+    else:
+        q, k, v = _whisper_encoder_qkv(monkeypatch)
+    want = tref.flash_attention_ref(q, k, v, causal=False)
+    atol, rtol = tref.flash_tolerance(want)
+    w = want.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / 8.0
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    like = (torch.einsum("bhqk,bhkd->bhqd", e.bfloat16().float(), v.float())
+            / e.sum(-1, keepdim=True)).bfloat16()
+    torch.testing.assert_close(like.float(), w, atol=atol, rtol=rtol)
+    kept = 1500 // 64 * 64
+    dropped = tref.flash_attention_ref(q, k[:, :, :kept], v[:, :, :kept],
+                                       causal=False).float()
+    outside = (dropped - w).abs() > atol + rtol * w.abs()
+    assert float(outside.float().mean()) > 1 / 3
 
 
 def test_flash_attention_fully_masked_row_is_mean_of_v():
@@ -467,10 +530,35 @@ def test_lm_storage_dtypes():
 
 @pytest.mark.parametrize("arch", ["xlstm_1_3b", "whisper_large_v3"])
 def test_unported_blocks_raise(arch):
-    with pytest.raises(NotImplementedError, match="A11"):
-        LM(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match="A11"):
-        tserve.Server(get_config(arch), device="cpu")
+    """A block kind that neither package has raises, naming it."""
+    cfg = get_config(arch).reduced()
+    odd = replace(cfg, block_pattern=cfg.block_pattern[:-1] + ("rwkv",))
+    with pytest.raises(ValueError, match="rwkv"):
+        LM(odd)
+
+
+@pytest.mark.parametrize("arch", ["xlstm_1_3b", "whisper_large_v3"])
+def test_xlstm_and_whisper_build(arch):
+    """xLSTM and Whisper build, as an LM and behind ``Server``; their
+    caches come stacked [G, ...] like every other slot's, a cell's
+    [B, ...] as its ``*_cache_init`` makes it."""
+    from repro_torch.ml import xlstm as TX
+    cfg = get_config(arch).reduced()
+    lm = LM(cfg)
+    assert lm.groups * lm.cyc == cfg.num_layers
+    srv = tserve.Server(get_config(arch), device="cpu")
+    assert srv.params["embed"].device.type == "cpu"
+    caches = lm.init_caches(2, 8, device="cpu", enc_len=5)
+    cells = {"mlstm": TX.mlstm_cache_init(2, cfg.d_model, cfg.num_heads,
+                                          device="cpu"),
+             "slstm": TX.slstm_cache_init(2, cfg.d_model, device="cpu")}
+    for s in range(lm.cyc):
+        cell = cells.get(cfg.layer_kind(s), {})
+        for name, t in caches[f"slot{s}"].items():
+            assert t.shape[:2] == (lm.groups, 2), (s, name, t.shape)
+            if cell:
+                assert t.shape[1:] == cell[name].shape, (s, name, t.shape)
+                assert not t.any()
 
 
 # --------------------------------------------------------------- server
