@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card
+(phase 3h on every visible card, with two or more).
 
     python3 chip_smoke.py
 
@@ -86,6 +87,21 @@ around it: it imports nothing of the JAX package.  Phases:
    ssm_scan launches; three reduced Jamba steps (float32 activations) on
    the card against the CPU from the same params; ``geo.denoise.snap_path`` for 1,000 waypoints × 2,000 segments
    on the card equal to the CPU's path;
+3h. cards (with two CUDA devices or more; with one it prints a line
+   saying it did not run): each partition's waves on its own card, card
+   p mod D of the exec mesh — Q7-agg, Q1 and Q11 at P = 2, 4 and the
+   default P (which must be the card count), and Q1 on SpeedObservations
+   rebuilt at 128 shards (4 waves a partition at P = 4), each byte-identical to
+   P = 1 on card 0 and close to the oracle, Σ_p ⌈shards_p/8⌉
+   ``run_wave_fused`` plus one ``merge_partials`` for an aggregate, each
+   partition's kernel launches counted on its card; Q7-agg at P = 4 with
+   partition 1 failing once; a ``FlumeEngine`` Q7-agg job at P = 4; the
+   trips-also serve batch at P = 4 against P = 1; a streaming source
+   appended to and primed again at P = 4 (only the new buffers copied,
+   on each card; a warm repeat copies nothing); warm medians, cold
+   times, each card's idle share and where a P = 4 run's host time goes
+   on ``cards`` lines.  While it runs no partition count is set, and
+   phases 3-3g, 4 and 5 run at P = 1 on card 0 whatever the card count;
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the largest shape the main path gave it (both segment_agg branches —
    the shared one must give the same bits from two calls, and the library
@@ -124,6 +140,11 @@ and timed in phase 4 only.
 
 It prints one ``{"kernels": [...]}`` line and, last, the device line.
 Any mismatch or exception ends it with a non-zero exit code.
+
+    python3 chip_smoke.py --require-cards N
+
+fails unless N or more CUDA devices are visible (a run on four cards
+cannot then take the one-card route), and otherwise runs as above.
 
     python3 chip_smoke.py --launch-path ROOT
 
@@ -265,13 +286,25 @@ def seg_branch(groups: int) -> str:
     return "shared" if groups <= segment_agg.SHARED_MAX_GROUPS else "global"
 
 
-def main() -> int:
+def main(require_cards: int = 1) -> int:
+    import os
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    n_cards = torch.cuda.device_count()
+    if n_cards < require_cards:
+        print(f"chip_smoke: {n_cards} CUDA device(s) visible, "
+              f"--require-cards {require_cards}", file=sys.stderr)
+        return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
+    from repro_torch.core.planner import PARTITIONS_ENV
+    if n_cards > 1:
+        # phases 3-3g, 4 and 5 hold their one-card contracts (P = 1 on
+        # card 0) whatever the card count; phase 3h lifts this, so that P
+        # defaults to the card count there
+        os.environ[PARTITIONS_ENV] = "1"
     from repro_torch.core import BETWEEN, IN, P, Session, fdb, group, proto
     from repro_torch.core import exprs
     from repro_torch.data.synthetic import BAY_AREA, NEIGHBORS, \
@@ -340,6 +373,15 @@ def main() -> int:
 
     trip_agg = (group(P.day).count("n").avg(d=P.duration_s)
                 .std_dev(sd=P.duration_s))
+
+    def q1_flow(source):
+        return (fdb(source)
+                .find(IN(P.loc, city_region("SF")) & BETWEEN(P.hour, 8, 9)
+                      & BETWEEN(P.dow, 0, 4) & BETWEEN(P.month, 1, 1))
+                .aggregate(group(P.road_id).avg(mean_speed=P.speed)
+                           .std_dev(std_speed=P.speed).count("n"))
+                .map(lambda p: proto(road_id=p.road_id, n=p.n,
+                                     cov=p.std_speed / p.mean_speed)))
     queries = {
         "Q7-agg": (lambda: fdb("Trips").tesseract(q7_tess(False))
                    .aggregate(trip_agg), True, True),
@@ -350,14 +392,7 @@ def main() -> int:
             .dwell(600.0).also(city_region("Berkeley"), *win(6, 14),
                                label="berkeley"))
             .map(lambda p: proto(id=p.id)), True, False),
-        "Q1": (lambda: fdb("SpeedObservations")
-               .find(IN(P.loc, city_region("SF")) & BETWEEN(P.hour, 8, 9)
-                     & BETWEEN(P.dow, 0, 4) & BETWEEN(P.month, 1, 1))
-               .aggregate(group(P.road_id).avg(mean_speed=P.speed)
-                          .std_dev(std_speed=P.speed).count("n"))
-               .map(lambda p: proto(road_id=p.road_id, n=p.n,
-                                    cov=p.std_speed / p.mean_speed)),
-               False, True),
+        "Q1": (lambda: q1_flow("SpeedObservations"), False, True),
     }
 
     # Record each kernel's largest input on the main path (refine per
@@ -676,6 +711,23 @@ def main() -> int:
     # ------------------------------------------------------------ 3g. train
     train_phase(torch, np, world, cat, counted)
     phase_done("3g train")
+
+    # ------------------------------------------------------------ 3h. cards
+    if n_cards > 1:
+        os.environ.pop(PARTITIONS_ENV)
+        try:
+            cards_phase(torch, np, world, cat, queries, oracle, counted,
+                        check_close, batches["trips-also"][1],
+                        lambda source: fdb(source).tesseract(
+                            q7_tess(False)).aggregate(trip_agg), q1_flow)
+        finally:
+            os.environ[PARTITIONS_ENV] = "1"
+    else:
+        print("cards: phase 3h did not run: one CUDA device is visible, "
+              "and partitions on their own cards need two or more "
+              "(python3 chip_smoke.py --require-cards 4 on a host with "
+              "four)")
+    phase_done("3h cards")
     for mod, name in wrappers:
         setattr(mod, name, originals[name])
 
@@ -1133,6 +1185,23 @@ def _host_ms(fn, iters):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _identical(where, got, base):
+    """Fail unless result ``got`` has ``base``'s (P = 1's) columns, rows
+    and bytes."""
+    if got.batch.paths() != base.batch.paths() or got.batch.n != \
+            base.batch.n:
+        fail(f"{where}: columns {got.batch.paths()} / {got.batch.n} rows "
+             f"vs {base.batch.paths()} / {base.batch.n} at P = 1")
+    for p in base.batch.paths():
+        a, b = got.batch[p].values, base.batch[p].values
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            fail(f"{where}: column {p} differs from P = 1")
+
+
 #: phase 3f: partition counts on the one card, and the partition that
 #: fails once in its reroute check
 ENGINE_PARTITIONS = (2, 4)
@@ -1177,18 +1246,7 @@ def engines_phase(torch, np, cat, queries, oracle, counted, check_close,
     merge.merge_partials = capture("merge_partials", originals[0])
     fused.segment_hll = capture("segment_hll", originals[1])
 
-    def median(xs):
-        return sorted(xs)[len(xs) // 2]
-
-    def identical(where, got, base):
-        if got.batch.paths() != base.batch.paths() or got.batch.n != \
-                base.batch.n:
-            fail(f"{where}: columns {got.batch.paths()} / {got.batch.n} "
-                 f"rows vs {base.batch.paths()} / {base.batch.n} at P = 1")
-        for p in base.batch.paths():
-            a, b = got.batch[p].values, base.batch[p].values
-            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
-                fail(f"{where}: column {p} differs from P = 1 on the card")
+    median, identical = _median, _identical
 
     def wave_kernels(where, kc, waves, has_refine):
         need = {"bitmap_intersect_batched": waves, "compact_batched": waves}
@@ -1406,6 +1464,299 @@ def engines_phase(torch, np, cat, queries, oracle, counted, check_close,
         out["merge_partials"] = (args, 40 * s * k * g + s * g
                                  + 40 * k * g + g, 5 * s * k * g + s * g)
     return out
+
+
+#: phase 3h: partition counts across the cards (and the default, which
+#: must resolve to the card count), the shards of the rebuilt
+#: SpeedObservations FDb, and the records of the streaming source's
+#: first generation
+CARD_PARTITIONS = (2, 4)
+CARD_OBS_SHARDS = 128
+CARD_STREAM_FIRST = 12_000
+CARD_STREAM_FLUSH = 2_400
+
+
+def _card_busy(torch, prof, wall_ms, n_cards):
+    """Each card's busy ms (the profiler's device records as recorded)
+    and idle share over a ``torch.profiler`` window of ``wall_ms``."""
+    from torch.autograd import DeviceType
+    busy = [0.0] * n_cards
+    seen = False
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and 0 <= e.device_index < n_cards:
+            busy[e.device_index] += e.self_device_time_total / 1e3
+            seen = True
+    if not seen:
+        return "not measured"
+    return [{"card": i, "busy_ms_raw": b, "idle_share": 1 - b / wall_ms}
+            for i, b in enumerate(busy)]
+
+
+def cards_phase(torch, np, world, cat, queries, oracle, counted,
+                check_close, serve_flows, q7_flow, q1_flow):
+    """Phase 3h: each partition's waves on its own card, through the
+    engines a user calls — ``AdHocEngine`` (Q7-agg, Q1, Q11 at P = 2, 4
+    and the default P, which must be the card count; Q1 also on
+    SpeedObservations rebuilt at 128 shards; Q7-agg with a partition
+    failing once), ``FlumeEngine`` (a Q7-agg job at P = 4),
+    ``QueryServer`` (the trips-also batch at P = 4) and a streaming
+    source appended to and primed again at P = 4.  Each result is held
+    byte for byte to P = 1 on card 0 and to the numpy oracle; each
+    query's dispatches to Σ_p ⌈shards_p/8⌉ (plus one ``merge_partials``
+    for an aggregate) and each partition's kernel launches to its card
+    p mod D.  Prints one ``cards`` line a sub-phase and query: warm
+    medians, cold times (the first P > 1 run on a fresh backend: its
+    cards join, and the first one in the process creates their CUDA
+    contexts), each card's idle share over one profiled warm run and
+    where the host time of a P = 4 run goes."""
+    import cProfile
+    import pstats
+    import shutil
+    import tempfile
+    from repro_torch.core import fdb
+    from repro_torch.core.planner import PartitionPlan, partition_shards
+    from repro_torch.exec import AdHocEngine, FaultPlan, FlumeEngine, \
+        TorchBackend
+    from repro_torch.fdb import build_fdb
+    from repro_torch.fdb.streaming import StreamingFDb
+    from repro_torch.kernels import _build
+    from repro_torch.launch.elastic import reroute_partitions
+    from repro_torch.launch.mesh import make_exec_mesh
+    from repro_torch.serve import QueryServer
+
+    n_cards = torch.cuda.device_count()
+    cards = make_exec_mesh(0)
+    print(f"cards: {n_cards} visible: " + ", ".join(
+        torch.cuda.get_device_name(i) for i in range(n_cards)))
+
+    median, identical = _median, _identical
+
+    def on_cards(where, parts, kernels, agg=False):
+        """Each card's launches of ``kernels``: the waves of the
+        partitions mapped to it (p mod D); segment_agg on each card that
+        ran a wave of an aggregate.  Returns the waves a card."""
+        d = min(len(parts), n_cards)
+        waves = [0] * n_cards
+        for p, part in enumerate(parts):
+            waves[p % d] += math.ceil(len(part) / WAVE)
+        for card, n in zip(cards, waves):
+            kc = _build.kernel_launches(card)
+            for k in kernels:
+                if kc.get(k, 0) != n:
+                    fail(f"{where}: {k} launched {kc.get(k, 0)} times on "
+                         f"{card}, expected {n} (waves of its partitions)")
+            if agg and n and not kc.get("segment_agg"):
+                fail(f"{where}: segment_agg never launched on {card}")
+        return waves
+
+    def card_busy(fn):
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            _, _, _, ms = counted("busy", fn)
+        return _card_busy(torch, prof, ms, n_cards)
+
+    def host_rows(fn):
+        host = cProfile.Profile()
+        host.enable()
+        counted("warm", fn)
+        host.disable()
+        return _own_and_self(_host_rows(pstats.Stats(host).stats))
+
+    wave_kernels = ("bitmap_intersect_batched", "compact_batched")
+
+    # ------------------------------------------------- queries on cards
+    obs128 = build_fdb("Obs128", world["observations_schema"],
+                       world["observations"], num_shards=CARD_OBS_SHARDS)
+    cat.register(obs128)
+    runs = dict(queries)
+    runs["Q1-128"] = (lambda: q1_flow("Obs128"), False, True)
+    for qname in ("Q7-agg", "Q1", "Q11", "Q1-128"):
+        make, has_refine, has_agg = runs[qname]
+        flow = make()
+        want = oracle.run(flow).to_records()
+        be = TorchBackend()
+        one = AdHocEngine(cat, backend=be, partitions=1)
+        counted("cold", lambda: one.collect(flow))
+        base = counted("warm", lambda: one.collect(flow))[0]
+        check_close(f"cards {qname} P=1", base.to_records(), want)
+        row = {"sub": "partitions", "query": qname,
+               "P1_warm_ms": median([counted("warm", lambda: one.collect(
+                   flow))[3] for _ in range(WARM_RUNS)])}
+        kernels = wave_kernels + (("refine_tracks_batched",)
+                                  if has_refine else ())
+        plist = CARD_PARTITIONS if qname != "Q1-128" else (4,)
+        for parts in plist + (None,):
+            eng = AdHocEngine(cat, backend=be, partitions=parts)
+            label = f"P{parts}" if parts else "Pdefault"
+            times = []
+            for run in ["cold"] + ["warm"] * WARM_RUNS:
+                res, lc, _, ms = counted(run, lambda: eng.collect(flow))
+                pp = partition_shards(res.plan.shard_ids,
+                                      parts or n_cards)
+                where = f"cards {qname} {label} {run}"
+                if parts is None and pp.num_partitions != n_cards:
+                    fail(f"{where}: the default P is "
+                         f"{pp.num_partitions}, not the card count")
+                need = {"run_wave_fused": pp.wave_dispatches(WAVE)}
+                if has_agg:
+                    need["merge_partials"] = 1
+                if lc != need:
+                    fail(f"{where}: dispatches {lc}, expected {need}")
+                waves = on_cards(where, pp.parts, kernels, has_agg)
+                identical(where, res, base)
+                check_close(where, res.to_records(), want)
+                if run == "cold":
+                    row[f"{label}_cold_ms"] = ms
+                else:
+                    times.append(ms)
+            row[f"{label}_warm_ms"] = median(times)
+            row[f"{label}_waves_by_card"] = waves
+            if parts == max(CARD_PARTITIONS):
+                row["P4_cards_busy"] = card_busy(lambda: eng.collect(flow))
+                row["P4_host_cum_ms"], row["P4_host_self_ms"] = host_rows(
+                    lambda: eng.collect(flow))
+        row["shards"] = len(base.plan.shard_ids)
+        print("cards " + json.dumps({**row, "match": True}))
+
+    # ------------------------------------------------ a failing partition
+    make, _, _ = queries["Q7-agg"]
+    flow = make()
+    parts = max(CARD_PARTITIONS)
+    be = TorchBackend()
+    base = counted("warm", lambda: AdHocEngine(
+        cat, backend=be, partitions=1).collect(flow))[0]
+    eng = AdHocEngine(cat, backend=be, partitions=parts)
+    row = {"sub": "partition_fault", "query": "Q7-agg", "partitions": parts,
+           "failing_partition": FAILING_PARTITION}
+    for run in ("cold", "warm"):
+        fp = FaultPlan(fail_once={("partition", FAILING_PARTITION)})
+        res, lc, _, ms = counted(run, lambda: eng.collect(flow,
+                                                           fault_plan=fp))
+        rerouted = PartitionPlan(reroute_partitions(
+            partition_shards(res.plan.shard_ids, parts).parts,
+            [FAILING_PARTITION]))
+        need = {"run_wave_fused": rerouted.wave_dispatches(WAVE),
+                "merge_partials": 1}
+        where = f"cards partition_fault {run}"
+        if lc != need or res.profile.retries != 1 or res.coverage != 1.0:
+            fail(f"{where}: dispatches {lc} (expected {need}), retries "
+                 f"{res.profile.retries}, coverage {res.coverage}")
+        row["waves_by_card"] = on_cards(
+            where, rerouted.parts,
+            wave_kernels + ("refine_tracks_batched",), True)
+        identical(where, res, base)
+        row[f"{run}_ms"] = ms
+    print("cards " + json.dumps({**row, "match": True}))
+
+    # -------------------------------------------------------------- flume
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cards_")
+    try:
+        fl = FlumeEngine(cat, backend=be, ckpt_dir=tmp, partitions=parts)
+        row = {"sub": "flume", "query": "Q7-agg", "partitions": parts}
+        for i, run in enumerate(("cold", "warm")):
+            res, lc, _, ms = counted(
+                run, lambda: fl.collect(flow, job_id=f"cards-{i}"))
+            pp = partition_shards(res.plan.shard_ids, parts)
+            need = {"run_wave_fused": pp.wave_dispatches(WAVE),
+                    "merge_partials": 1}
+            where = f"cards flume {run}"
+            if lc != need:
+                fail(f"{where}: dispatches {lc}, expected {need}")
+            row["waves_by_card"] = on_cards(
+                where, pp.parts, wave_kernels + ("refine_tracks_batched",),
+                True)
+            identical(where, res, base)
+            row[f"{run}_ms"] = ms
+        print("cards " + json.dumps({**row, "match": True}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ------------------------------------------------------- query server
+    want = [oracle.run(f).to_records() for f in serve_flows]
+    row = {"sub": "serve", "batch": "trips-also",
+           "queries": len(serve_flows), "partitions": parts}
+    results = {}
+    for p in (1, parts):
+        srv = QueryServer(AdHocEngine(cat, backend=be, partitions=p),
+                          cache=False, start=False)
+        for run in ("cold", "warm"):
+            futs = [srv.submit(f) for f in serve_flows]
+            _, lc, _, ms = counted(run, srv.run_pending)
+            got = [f.result(120) for f in futs]
+            pp = partition_shards(got[0].plan.shard_ids, p)
+            where = f"cards serve P={p} {run}"
+            need = {"run_wave_fused_multi": pp.wave_dispatches(WAVE)}
+            if lc != need or srv.stats()["coalesced_batches"] < 1:
+                fail(f"{where}: dispatches {lc}, expected {need}")
+            if p > 1:
+                row["waves_by_card"] = on_cards(
+                    where, pp.parts, wave_kernels + ("refine_tracks_multi",))
+            for g, w in zip(got, want):
+                check_close(where, g.to_records(), w)
+            results[p] = got
+            row[f"P{p}_{run}_ms"] = ms
+    for qi, (g, b) in enumerate(zip(results[parts], results[1])):
+        identical(f"cards serve query {qi}", g, b)
+    print("cards " + json.dumps({**row, "match": True}))
+
+    # ------------------------------------------------ streaming, re-primed
+    trips = world["trips"]
+    live = StreamingFDb("TripsLive", world["trips_schema"],
+                        flush_threshold=CARD_STREAM_FLUSH,
+                        compact_threshold=0)
+    live.extend(trips[:CARD_STREAM_FIRST])
+    cat.register(live)
+    flow = q7_flow("TripsLive")
+    be = TorchBackend()
+    eng = AdHocEngine(cat, backend=be, partitions=parts)
+    row = {"sub": "streaming", "query": "Q7-agg", "partitions": parts}
+    for gen in ("first", "appended"):
+        if gen == "appended":
+            live.extend(trips[CARD_STREAM_FIRST:])
+        snap = cat.get("TripsLive")
+        before = {c: c_.stats() for c, c_ in be.device_caches().items()}
+        new = be.prime_fdb(snap)
+        want = oracle.run(flow).to_records()
+        base = counted("warm", lambda: AdHocEngine(
+            cat, backend=be, partitions=1).collect(flow))[0]
+        for run in ("cold", "warm"):
+            stats = {c: c_.stats() for c, c_ in be.device_caches().items()}
+            res, lc, _, ms = counted(run, lambda: eng.collect(flow))
+            where = f"cards streaming {gen} {run}"
+            pp = partition_shards(res.plan.shard_ids, parts)
+            need = {"run_wave_fused": pp.wave_dispatches(WAVE),
+                    "merge_partials": 1}
+            if lc != need:
+                fail(f"{where}: dispatches {lc}, expected {need}")
+            on_cards(where, pp.parts,
+                     wave_kernels + ("refine_tracks_batched",), True)
+            identical(where, res, base)
+            check_close(where, res.to_records(), want)
+            if run == "warm":
+                for c, cache in be.device_caches().items():
+                    now = cache.stats()
+                    if any(now[k] != stats[c][k]
+                           for k in ("buffers", "keyed", "misses")):
+                        fail(f"{where}: the repeat changed {c}'s cache: "
+                             f"{stats[c]} -> {now}")
+            row[f"{gen}_{run}_ms"] = ms
+        caches = be.device_caches()
+        if gen == "appended":
+            copied = {str(c): caches[c].stats()["buffers"]
+                      - before[c]["buffers"]
+                      + caches[c].stats()["retired_buffers"]
+                      - before[c]["retired_buffers"] for c in before}
+            total = caches[cards[0]].stats()["buffers"]
+            if len(before) != n_cards or \
+                    set(copied.values()) != {new} or not 0 < new < total:
+                fail(f"cards streaming: the append copied {copied} buffers "
+                     f"(prime_fdb said {new} of {total}); expected the new "
+                     "ones only, on each card")
+            row.update(new_buffers=new, copied_by_card=copied,
+                       buffers=total)
+        row[f"{gen}_shards"] = snap.num_shards
+    print("cards " + json.dumps({**row, "match": True}))
 
 
 def segment_entry(torch, captured, reps, measure, segment_case,
@@ -2572,4 +2923,10 @@ def launch_path_main(root: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--launch-path"]:
         sys.exit(launch_path_main(sys.argv[2] if len(sys.argv) > 2 else "."))
-    sys.exit(main())
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
+                                 "port (see the module docstring).")
+    ap.add_argument("--require-cards", type=int, default=1, metavar="N",
+                    help="fail unless N or more CUDA devices are visible "
+                    "(phase 3h runs with two or more)")
+    sys.exit(main(ap.parse_args().require_cards))

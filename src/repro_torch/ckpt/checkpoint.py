@@ -12,7 +12,9 @@ The port of ``repro/ckpt/checkpoint.py`` for one process:
   * **atomic** — writes go to ``step-XXXXXXXX.tmp/`` and are committed
     with one ``os.replace``; a crashed save is never mistaken for a
     valid checkpoint (restore picks the newest *committed* step);
-  * **retention** — keep-last-k GC.
+  * **retention** — keep-last-k GC over committed steps; it never joins
+    a writer, so a non-blocking save does not wait for its write
+    (``CheckpointManager.wait`` joins them, then prunes).
 
 Restore takes a target ``device`` where the reference takes shardings:
 tensor leaves of the template come back as tensors there, other leaves
@@ -114,7 +116,8 @@ def save_checkpoint(directory: str, step: int, tree, *,
             json.dump({"step": step, "leaves": meta}, fh)
         os.replace(tmp, final)          # atomic commit
 
-    t = threading.Thread(target=write, daemon=True)
+    # not a daemon: the interpreter waits for a pending write at exit
+    t = threading.Thread(target=write)
     t.start()
     if blocking:
         t.join()
@@ -146,33 +149,48 @@ def restore_checkpoint(directory: str, template, *, step: Optional[int] = None,
 
 
 class CheckpointManager:
-    """Async save + keep-last-k retention + restore-or-init."""
+    """Async save + keep-last-k retention + restore-or-init.
+
+    ``save(blocking=False)`` returns once the leaves are on the host; the
+    writer runs on.  Retention prunes committed steps only, so it never
+    waits for a writer: while writes are pending, up to ``keep`` committed
+    steps stay beside them.  ``wait()`` joins the pending writers and then
+    prunes, so ``keep`` holds after it; a restore calls it, and the
+    interpreter joins the writers at exit (they are not daemon threads).
+    (The JAX package's ``save`` joins the writer it has just started, in
+    its retention pass.)"""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = keep
         self._pending: List[threading.Thread] = []
+        self._lock = threading.Lock()
         os.makedirs(directory, exist_ok=True)
 
     def save(self, step: int, tree, blocking: bool = False):
         t = save_checkpoint(self.directory, step, tree, blocking=blocking)
-        self._pending.append(t)
+        with self._lock:
+            self._pending.append(t)
         self._gc()
         return t
 
     def wait(self):
-        for t in self._pending:
+        """Join every pending writer, then prune to ``keep``."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for t in pending:
             t.join()
-        self._pending.clear()
+        self._gc()
 
     def restore_or_none(self, template, device=None):
+        self.wait()
         if latest_step(self.directory) is None:
             return None, None
-        self.wait()
         return restore_checkpoint(self.directory, template, device=device)
 
     def _gc(self):
-        self.wait()
+        """Remove all but the newest ``keep`` committed steps (a step
+        being written is not committed: its directory ends in ``.tmp``)."""
         steps = sorted(
             int(m.group(1)) for f in os.listdir(self.directory)
             if (m := re.fullmatch(r"step-(\d+)", f)))

@@ -40,7 +40,9 @@ per-primitive path when the op declines or is ineligible (see
 
 The torch backend keeps stable per-FDb buffers (column values, packed
 track words) device-resident across queries — ``prime_fdb`` /
-:mod:`repro_torch.exec.device_cache`.
+:mod:`repro_torch.exec.device_cache` — with one cache a card: a query
+over P > 1 partitions runs partition p's waves on card p mod D of the
+exec mesh (``partition_context``).
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ from ..fdb.index import (bitmap_from_ids, bitmap_stack, ids_from_bitmap,
 from ..kernels import fused as _fused
 from ..kernels import ops as _ops
 from ..kernels.refine import MAX_CONSTRAINTS
+from ..launch.mesh import make_exec_mesh
 from .device_cache import DeviceCache, to_device, to_host
 from .refine import (FIRST_HIT_NONE, LAST_HIT_NONE, pack_constraints,
                      pack_constraints_multi, pack_track_points,
@@ -506,12 +509,24 @@ class TorchBackend(ExecBackend):
     (``segment_hll``) are plain PyTorch ops on ``device``, as the JAX
     package's are plain jnp.
 
-    ``device`` defaults to ``"cuda"``; without a CUDA device the
-    constructor raises rather than carry on elsewhere.  ``device="cpu"``
-    is the explicit request the tests make: every kernel wrapper then
-    runs its plain PyTorch version, and aggregates stage float64 values
-    (bit-equal to the numpy oracle).  On the card value columns stage as
-    float32, the ``segment_agg`` kernel's input type.
+    ``device`` defaults to ``"cuda"``, resolved to the calling thread's
+    current card (``cuda:<current device>``) at construction: the
+    backend's own card.  Without a CUDA device the constructor raises
+    rather than carry on elsewhere.  ``device="cpu"`` is the explicit
+    request the tests make: every kernel wrapper then runs its plain
+    PyTorch version, and aggregates stage float64 values (bit-equal to
+    the numpy oracle).  On the card value columns stage as float32, the
+    ``segment_agg`` kernel's input type.
+
+    Cards: inside ``partition_context(p, P)`` (P > 1) the calling
+    thread's waves run on card p mod D of ``make_exec_mesh(P)``; the
+    card is thread-local, because the engines run several partitions
+    at once on a thread pool.  ``device`` and ``device_cache`` read the
+    calling thread's card, elsewhere the backend's own.  Each card keeps
+    its own ``DeviceCache``: a card other than the backend's own is
+    filled with every primed buffer the first time a partition runs
+    there, and ``prime_fdb`` and the finalizers keep every such card in
+    step.
     """
 
     name = "torch"
@@ -525,9 +540,18 @@ class TorchBackend(ExecBackend):
             raise RuntimeError(
                 "TorchBackend: no CUDA device is available; pass "
                 "device='cpu' to run the plain PyTorch versions")
-        self.device = dev
+        if dev.type == "cuda" and dev.index is None:
+            # CUDA's current device is per host thread: pin the one the
+            # constructing thread has, not "whichever is current"
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._home = dev
+        # the calling thread's partition card (partition_context)
+        self._local = threading.local()
         self._val_dtype = np.float32 if dev.type == "cuda" else np.float64
-        self.device_cache = DeviceCache(dev)
+        # card → its cache; a card joins on its first partition
+        # (_card_cache), under _prime_lock
+        self._caches: Dict[torch.device, DeviceCache] = {
+            dev: DeviceCache(dev)}
         #: when set to a list, the fused path appends ("prefetch", n) /
         #: ("wave_done", shard_ids) markers
         self.trace_events: Optional[list] = None
@@ -570,6 +594,39 @@ class TorchBackend(ExecBackend):
         bit-equal to the numpy oracle)."""
         codes32 = np.ascontiguousarray(codes, dtype=np.int32)
         return self._segment_dispatch(codes32, values, num_groups)
+
+    # ------------------------------------------------------------ cards
+    @property
+    def device(self) -> torch.device:
+        """The calling thread's card: its partition's inside
+        ``partition_context``, else the backend's own device."""
+        return getattr(self._local, "device", None) or self._home
+
+    @property
+    def device_cache(self) -> DeviceCache:
+        """The resident buffers of the calling thread's card."""
+        return self._caches[self.device]
+
+    def device_caches(self) -> Dict[torch.device, DeviceCache]:
+        """Every card's cache, the backend's own first."""
+        with self._prime_lock:
+            return dict(self._caches)
+
+    def _card_cache(self, card: torch.device) -> DeviceCache:
+        """``card``'s cache, made on the first partition that runs there
+        and filled with every buffer primed so far (partitions are slices
+        of each query's pruned shard list, so any card may need any
+        shard).  It is published only once full."""
+        cache = self._caches.get(card)
+        if cache is None:
+            with self._prime_lock:
+                cache = self._caches.get(card)
+                if cache is None:
+                    cache = DeviceCache(card)
+                    for arr in self._caches[self._home].host_arrays():
+                        cache.put(arr)
+                    self._caches[card] = cache
+        return cache
 
     # ------------------------------------------------------------ helpers
     def _up(self, arr: np.ndarray) -> torch.Tensor:
@@ -677,14 +734,17 @@ class TorchBackend(ExecBackend):
                 else:
                     self._primed_refs[key] = n
             if gone:
-                self.device_cache.drop(gone, retired=retire)
+                for cache in self._caches.values():
+                    cache.drop(gone, retired=retire)
 
     def prime_fdb(self, db) -> int:
         """Put ``db``'s stable buffers on the device once (idempotent per
         FDb): column values and row_splits (``gather_columns``) and each
         track's packed refine words (the refine stage), and each
-        spacetime index's per-doc track spans (``postings_bitmap``).
-        Returns the number of buffers newly copied.  Incremental across
+        spacetime index's per-doc track spans (``postings_bitmap``), on
+        the backend's own card and on every card a partition has run on.
+        Returns the number of buffers newly copied to each of those
+        cards (they hold the same ones).  Incremental across
         streaming generations (identity keying), refcounted across FDbs
         that share Shards, released by a finalizer when the FDb is
         collected.  (The
@@ -693,7 +753,8 @@ class TorchBackend(ExecBackend):
         with self._prime_lock:
             if db in self._primed_fdbs:
                 return 0
-            before = len(self.device_cache)
+            home = self._caches[self._home]
+            before = len(home)
             primed: List[np.ndarray] = []
             for shard in db.shards:
                 for col in shard.batch.columns.values():
@@ -709,14 +770,15 @@ class TorchBackend(ExecBackend):
                             primed.extend((pts, rows))
             keys = set()
             for arr in primed:
-                self.device_cache.put(arr)
+                for cache in self._caches.values():
+                    cache.put(arr)
                 keys.add(id(arr))
             for key in keys:
                 self._primed_refs[key] = self._primed_refs.get(key, 0) + 1
             self._primed_fdbs.add(db)
             self._primed_keysets[db] = keys
             weakref.finalize(db, self._release_primed, keys)
-            uploaded = len(self.device_cache) - before
+            uploaded = len(home) - before
             # priming a newer snapshot of the same source retires the
             # replaced generation's exclusive buffers right away
             prev_ref = self._latest_primed.get(db.name)
@@ -1413,36 +1475,59 @@ class TorchBackend(ExecBackend):
         return out[:, 0].cpu().numpy().reshape(num_groups, num_regs)
 
     # ------------------------------------------------------ partition layer
+    def partition_card(self, part: int, num_parts: int) -> torch.device:
+        """The card partition ``part`` of ``num_parts`` runs on: card
+        ``part mod D`` of ``make_exec_mesh(num_parts)``; the backend's
+        own device for one partition or on the CPU."""
+        if num_parts <= 1 or self._home.type != "cuda":
+            return self._home
+        mesh = make_exec_mesh(num_parts, self._home)
+        return mesh[part % len(mesh)]
+
+    @contextlib.contextmanager
     def partition_context(self, part: int, num_parts: int):
-        """The engines enter this around each partition's waves.  It
-        places nothing, for any P: every buffer of the backend lives in
-        its one ``DeviceCache`` on ``self.device``, so on one card the
-        partitions' waves run one after another there, and with more than
-        one card they still run on this one.  Placing partitions on their
-        own cards (``torch.distributed``) is ROADMAP A6's later step."""
-        del part, num_parts
-        return contextlib.nullcontext()
+        """The engines enter this around each partition's waves: the
+        calling thread's waves run on ``partition_card(part, num_parts)``
+        (the JAX package pins partition p to device p mod D the same way)
+        and read that card's resident buffers.  The choice is the
+        thread's own (``threading.local``, with CUDA's current device of
+        the thread set to match), because the engines run partitions
+        concurrently; it is undone on exit.  On a backend on the CPU, and
+        for one partition, it changes nothing."""
+        if num_parts <= 1 or self._home.type != "cuda":
+            yield
+            return
+        card = self.partition_card(part, num_parts)
+        self._card_cache(card)
+        prev = getattr(self._local, "device", None)
+        self._local.device = card
+        try:
+            with torch.cuda.device(card):
+                yield
+        finally:
+            self._local.device = prev
 
     def merge_partials(self, states, minmax=(), parts=None):
         """One-dispatch device combine of the per-shard segment states:
-        align every state to the sorted union key space on the host,
-        stack ``[S, K, G]`` planes once (identity fill: 0 for
-        count/sum/sum_sq, ±inf for min/max, False for presence), upload
-        them to ``self.device`` and make **one** ``ops.merge_partials``
-        call, which accumulates in states order — bit-equal to the numpy
-        oracle (``kernels/merge.py``).  With no live state it still makes
-        one combine call, so the launch contract stays exact.  ``parts``
-        (per-partition state counts) is layout only: one device holds
-        every state."""
-        del parts
+        the states came back to the host from each partition's card;
+        align every state to the sorted union key space there, stack
+        ``[S, K, G]`` planes once (identity fill: 0 for count/sum/sum_sq,
+        ±inf for min/max, False for presence), upload them to the first
+        card of the exec mesh (``partition_card(0, P)``, P = ``len(parts)``;
+        the backend's own device without ``parts``) and make **one**
+        ``ops.merge_partials`` call, which accumulates in states order —
+        bit-equal to the numpy oracle (``kernels/merge.py``).  No
+        cross-card reduction runs: per-card subtotals would change the
+        float sums' order.  With no live state it still makes one combine
+        call, so the launch contract stays exact."""
+        dev = self.partition_card(0, len(parts) if parts else 1)
         states = [(np.asarray(k), list(slots)) for k, slots in states]
         live = [st for st in states if len(st[0]) and st[1]]
         if not live:
-            zero = torch.zeros((1, 1, 0), dtype=torch.float64,
-                               device=self.device)
+            zero = torch.zeros((1, 1, 0), dtype=torch.float64, device=dev)
             _ops.merge_partials(zero.to(torch.int64), zero, zero, zero,
                                 zero, torch.zeros((1, 0), dtype=torch.bool,
-                                                  device=self.device))
+                                                  device=dev))
             return np.zeros(0, np.int64), []
         union = np.unique(np.concatenate([k for k, _ in live]))
         n_states = len(live)
@@ -1466,7 +1551,7 @@ class TorchBackend(ExecBackend):
                     mn[si, k, idx] = np.asarray(st[3], np.float64)
                     mx[si, k, idx] = np.asarray(st[4], np.float64)
             msk[si, idx] = np.asarray(slots[0][0]) > 0
-        out = _ops.merge_partials(*(self._up(a) for a in
+        out = _ops.merge_partials(*(to_device(a, dev) for a in
                                     (cnt, s, s2, mn, mx, msk)))
         o_cnt, o_s, o_s2, o_mn, o_mx = [x.cpu().numpy() for x in out[:5]]
         merged = []

@@ -13,6 +13,10 @@ Identity keying also makes priming incremental for streaming ingestion:
 successive snapshots share their sealed ``Shard`` objects, so re-priming
 a new generation copies only the fresh buffers.
 
+A backend keeps one cache a card (``TorchBackend.device_caches``): each
+holds the same primed buffers, and its keyed entries are the stacks the
+waves that ran on that card derived.
+
 Buffers keep their width and bits on the device.  Unsigned integer arrays
 (the uint32 track words, uint32 bitmaps) travel as the signed integer
 type of the same width, which every torch op on both devices handles;
@@ -102,6 +106,12 @@ class DeviceCache:
                 return hit[1]
             self.misses += 1
             return None
+
+    def host_arrays(self):
+        """The host arrays resident here (a card joining the backend's
+        cards is filled with them)."""
+        with self._lock:
+            return [a for a, _ in self._buffers.values()]
 
     def put_keyed(self, key: tuple, value) -> None:
         """Store a derived wave-stacked entry under a flat tuple key whose

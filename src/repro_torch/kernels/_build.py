@@ -20,8 +20,11 @@ launch takes no lock and looks up no symbol: it reads the table, the
 current stream (entering ``torch.cuda.device`` only when the tensors'
 card is not the current one) and calls the entry.
 
-:func:`launch` also bumps the per-kernel launch counter
-(:func:`kernel_launches`).  It is the only place that counts, so a wrapper
+:func:`launch` raises when a tensor argument sits on another device than
+the launch's (a kernel handed two cards' pointers does not fail cleanly),
+and bumps the launch counter of the kernel on its card
+(:func:`kernel_launches`, per card with ``device=``).  It is the only
+place that counts, so a wrapper
 that runs the plain PyTorch version (CPU tensors) counts nothing: the
 counter is the evidence that a run went through the kernels.  The logical
 dispatch counter the engines' launch contract reads lives in
@@ -78,6 +81,7 @@ _ENTRIES: Dict[str, Callable[..., int]] = {}
 #: nvcc's output (the ptxas register / shared-memory report) per library
 #: built by this process
 BUILD_LOGS: Dict[str, str] = {}
+#: (counter, device index) → launches
 _LAUNCHES: Counter = Counter()
 _LAUNCH_LOCK = threading.Lock()
 
@@ -194,15 +198,21 @@ def forbid_grad(kernel: str, *tensors) -> None:
 def launch(counter: str, entry: str, device: torch.device, *args) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream; tensors
     pass as their data pointers (``None`` as a null pointer), numbers as
-    themselves.  Raises on a CUDA error, then counts one launch under
-    ``counter``."""
+    themselves.  Raises when a tensor is not on ``device`` and on a CUDA
+    error, then counts one launch under ``counter`` on ``device``."""
+    index = device.index
+    ptrs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.get_device() != index:
+                _mixed_devices(entry, device, args)
+            ptrs.append(a.data_ptr())
+        else:
+            ptrs.append(a)
     fn = _ENTRIES.get(entry)
     if fn is None:
         _load()
         fn = _ENTRIES[entry]
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args]
-    index = device.index
     if index == torch.cuda.current_device():
         err = fn(*ptrs, torch.cuda.current_stream(index).cuda_stream)
     else:
@@ -213,13 +223,33 @@ def launch(counter: str, entry: str, device: torch.device, *args) -> None:
         msg = _LIBS[lib].repro_strerror(err).decode(errors="replace")
         raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
     with _LAUNCH_LOCK:
-        _LAUNCHES[counter] += 1
+        _LAUNCHES[(counter, index)] += 1
 
 
-def kernel_launches() -> Dict[str, int]:
-    """CUDA kernel launches per wrapper since the last reset."""
+def _mixed_devices(entry: str, device: torch.device, args) -> None:
+    """Raise for a launch whose tensors do not all sit on ``device``: a
+    kernel handed another card's pointers would read that card's memory
+    or fault later, so nothing is copied on the fly."""
+    devs = sorted({str(device)} | {str(a.device) for a in args
+                                   if isinstance(a, torch.Tensor)})
+    raise ValueError(f"{entry}: tensors on more than one device "
+                     f"({', '.join(devs)}); a kernel runs on one card")
+
+
+def kernel_launches(device=None) -> Dict[str, int]:
+    """CUDA kernel launches per wrapper since the last reset, on every
+    card, or only on ``device`` (a ``torch.device``, its string or its
+    index)."""
+    index = None
+    if device is not None:
+        index = device if isinstance(device, int) else \
+            torch.device(device).index
+    out: Counter = Counter()
     with _LAUNCH_LOCK:
-        return dict(_LAUNCHES)
+        for (counter, i), n in _LAUNCHES.items():
+            if index is None or i == index:
+                out[counter] += n
+    return dict(out)
 
 
 def reset_kernel_launches() -> None:

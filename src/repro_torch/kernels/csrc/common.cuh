@@ -16,6 +16,20 @@
     return cudaGetErrorString(static_cast<cudaError_t>(err));       \
   }
 
+// Kernels that keep state a device (a raised shared-memory cap, an
+// occupancy answer) index it by the device ordinal, in words of this many
+// bits or arrays of this many entries.
+constexpr int kMaxDevices = 32;
+
+// The calling thread's current device, which the launch runs on; an
+// ordinal past kMaxDevices is refused rather than indexed.
+inline cudaError_t repro_device(int* dev) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err == cudaSuccess && (*dev < 0 || *dev >= kMaxDevices))
+    err = cudaErrorInvalidDevice;
+  return err;
+}
+
 // cudaMemsetAsync that skips empty buffers (an empty tensor's pointer may
 // be null).
 inline cudaError_t repro_memset(void* ptr, int value, size_t bytes,

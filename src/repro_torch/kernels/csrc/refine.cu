@@ -527,11 +527,13 @@ template <int MODE, bool GLOBAL>
 cudaError_t launch(Args& a, size_t smem, cudaStream_t st) {
   const void* kernel = reinterpret_cast<const void*>(
       refine_kernel<MODE, GLOBAL>);
-  // the cap on dynamic shared memory, raised once a device: above 48 KB
-  // less the queues only with it
+  // the cap on dynamic shared memory, raised once a device (bit `dev`,
+  // for the device the calling thread launches on): above 48 KB less the
+  // queues only with it
   static std::atomic<unsigned> raised{0};
+  static_assert(kMaxDevices <= 32, "one bit a device");
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = repro_device(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess && !((raised.load() >> dev) & 1u)) {

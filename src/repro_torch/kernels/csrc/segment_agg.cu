@@ -216,15 +216,10 @@ seg_global_kernel(const int32_t* __restrict__ gid,
 
 // Bit d set once pass 1 may take kSlabSmemBudget bytes on device d.
 std::atomic<unsigned> g_smem_ready{0};
+static_assert(kMaxDevices <= 32, "one bit a device");
 // Blocks of seg_global_kernel<VEC> resident at once on device d (0 = not
 // yet asked).
-std::atomic<int> g_resident[2][32];
-
-int current_device() {
-  int dev = 0;
-  cudaGetDevice(&dev);
-  return dev;
-}
+std::atomic<int> g_resident[2][kMaxDevices];
 
 }  // namespace
 
@@ -239,7 +234,9 @@ REPRO_EXPORT int repro_segment_agg_shared(const void* gid, const void* val,
   if (N < 1 || G < 1 || G > kSharedMaxGroups || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int dev = current_device();
+  int dev = 0;
+  cudaError_t dev_err = repro_device(&dev);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   if (!((g_smem_ready.load() >> dev) & 1u)) {
     cudaError_t err = cudaFuncSetAttribute(
         seg_partials_kernel<true>,
@@ -288,7 +285,9 @@ REPRO_EXPORT int repro_segment_agg_global(const void* gid, const void* val,
   const void* kernel = vec
       ? reinterpret_cast<const void*>(seg_global_kernel<true>)
       : reinterpret_cast<const void*>(seg_global_kernel<false>);
-  const int dev = current_device();
+  int dev = 0;
+  cudaError_t dev_err = repro_device(&dev);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   int resident = g_resident[vec][dev].load();
   if (resident == 0) {
     int per_sm = 0, sms = 0;

@@ -19,9 +19,12 @@ The JAX package (``repro/kernels/merge.py``) runs the same in-order loop
 under ``shard_map`` over a ``"part"`` mesh and combines the per-device
 subtotals with ``psum`` / ``pmin`` / ``pmax``: on a real multi-device
 mesh its float sums become per-device subtotals added in a tree, so they
-lose the exact P=1 order.  Here every state sits on one card and the
-whole loop keeps the exact order.  The reference lowers this to plain
-jnp (no Pallas kernel), so it is plain PyTorch here as well.
+lose the exact P=1 order.  Here the partitions' waves run on their own
+cards, but their states come back to the host, and the backend stacks
+them and calls this once on the first card of the exec mesh
+(``TorchBackend.merge_partials``): no cross-card reduction, so the whole
+loop keeps the exact order.  The reference lowers this to plain jnp (no
+Pallas kernel), so it is plain PyTorch here as well.
 """
 from __future__ import annotations
 

@@ -260,8 +260,9 @@ def test_no_cpu_fallback(monkeypatch):
 
 
 def test_partition_context(cpu):
-    """Entered around each partition's waves; it places nothing, at any
-    P (every buffer lives in the backend's one device cache)."""
+    """Entered around each partition's waves; on a backend on the CPU it
+    places nothing, at any P (one device, one cache).  Placement on cards
+    is ``tests/test_torch_multicard.py``'s."""
     with cpu.partition_context(0, 1):
         pass
     for p in (2, 4):

@@ -3,12 +3,15 @@
 Each kernel is held to its plain PyTorch version on the same CUDA inputs
 (exact, except float64 sums, which may differ by summation order only),
 and the fused wave and the coalescing query server run end to end on the
-card against the port's numpy oracle; the LM's prefill (through the
+card against the port's numpy oracle — and, with two cards or more, with
+each partition's waves on its own card (these tests skip below two
+cards); the LM's prefill (through the
 flash-attention and ssm_scan kernels) is held to its plain decode path.  Without a GPU every test here skips.  This file imports nothing
 of ``jax`` or ``repro``, so a GPU machine without jax runs it with
 
     python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
 """
+import contextlib
 import math
 
 import numpy as np
@@ -38,10 +41,14 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def card():
+def card(monkeypatch):
+    """One card.  On a host with more, queries would default to one
+    partition a card; the one-card contracts here pin P = 1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the hand-written kernels have no "
                     "CPU mode")
+    from repro_torch.core.planner import PARTITIONS_ENV
+    monkeypatch.setenv(PARTITIONS_ENV, "1")
     return torch.device("cuda")
 
 
@@ -1224,3 +1231,322 @@ def test_lm_kernel_impl_raises_under_grad_on_card(card):
     logits.float().square().mean().backward()
     assert live["embed"].grad is not None
     assert _build.kernel_launches() == before
+
+
+# ------------------------------------------ partitions on their own cards
+#
+# These need two cards or more (a host with four runs them all); with one
+# they skip.  Partition p of P runs on card p mod D of ``make_exec_mesh(P)``.
+
+@pytest.fixture
+def cards():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"needs two CUDA devices or more, {n} visible: "
+                    "partitions on their own cards")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _per_card(parts, n_cards, wave=8):
+    """Expected waves a card: partition p's ⌈shards_p/wave⌉ on card
+    p mod D, D = min(P, n_cards)."""
+    d = min(len(parts), n_cards)
+    out = [0] * n_cards
+    for p, part in enumerate(parts):
+        out[p % d] += math.ceil(len(part) / wave)
+    return out
+
+
+def _multicard_world():
+    """The scale-2 world, with SpeedObservations also at 64 shards so that
+    each of 4 partitions runs two waves of 8."""
+    w = generate_world(scale=2.0, seed=1)
+    cat = _engine_world()
+    cat.register(build_fdb("Obs64", w["observations_schema"],
+                           w["observations"], num_shards=64))
+    return cat
+
+
+def _multicard_flows():
+    from repro_torch.core import BETWEEN, P, fdb, group, proto
+    from repro_torch.tess import Tesseract
+    day = 2 * 86400.0
+    sf = Tesseract(city_region("SF"), day + 6 * 3600, day + 12 * 3600)
+    bk = (city_region("Berkeley"), day + 6 * 3600, day + 14 * 3600)
+    return {
+        "Q7-agg": (fdb("Trips").tesseract(sf.also(*bk)).aggregate(
+            group(P.day).count("n").avg(d=P.duration_s)
+            .std_dev(sd=P.duration_s)), True, True),
+        "Q1": (fdb("Obs64").find(BETWEEN(P.hour, 7, 10)).aggregate(
+            group(P.road_id).count("n").avg(a=P.speed)
+            .std_dev(sd=P.speed)), False, True),
+        "Q11": (fdb("Trips").tesseract(sf.dwell(300.0).also(*bk))
+                .map(lambda p: proto(id=p.id)), True, False)}
+
+
+def _same_bytes(got, base):
+    assert got.batch.paths() == base.batch.paths()
+    assert got.batch.n == base.batch.n
+    for p in base.batch.paths():
+        a, b = got.batch[p].values, base.batch[p].values
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), p
+
+
+@pytest.mark.parametrize("kernel", ["bitset", "compact", "segment_agg",
+                                    "refine", "refine_multi",
+                                    "bitmap_intersect", "mask_scan"])
+def test_kernels_on_every_card_match_card_0(cards, kernel):
+    """Each main-path kernel launched on every card (from a thread whose
+    current card is 0, so the launch switches, and from inside each
+    card) gives card 0's bytes — the per-device state in the sources
+    (raised shared-memory caps, occupancy, kept scan and intersect
+    state) is right on every card — and counts on that card only."""
+    rng = np.random.default_rng(3)
+    if kernel == "bitset":
+        host = [rng.integers(0, 1 << 32, (9, 5, 2000), dtype=np.uint64)
+                .astype(np.uint32)]
+
+        def run(dev):
+            return bitset.bitmap_intersect_batched(_words(host[0], dev))
+    elif kernel == "compact":
+        host = [rng.random((8, 20_000)) < .3]
+
+        def run(dev):
+            return compact.compact_batched(torch.from_numpy(host[0]).to(dev))
+    elif kernel == "segment_agg":
+        host = []
+        for groups in (56, 77_888):         # the shared and global branches
+            host.append((np.where(rng.random(160_000) < .3,
+                                  rng.integers(0, groups, 160_000), -1)
+                         .astype(np.int32),
+                         rng.uniform(1, 100, 160_000).astype(np.float32),
+                         groups))
+
+        def run(dev):
+            out = []
+            for gid, vals, groups in host:
+                out.extend(segment_agg.segment_agg(
+                    torch.from_numpy(gid).to(dev),
+                    torch.from_numpy(vals).to(dev), groups))
+            return out
+    elif kernel in ("refine", "refine_multi"):
+        seed = int(rng.integers(1 << 30))
+
+        def run(dev):
+            r = np.random.default_rng(seed)
+            out = []
+            if kernel == "refine":
+                # a table in shared memory, and one past it (5000 ranges)
+                for ranges in ((150, 150), (150, 40, 5000)):
+                    pts, rows, cov, _ = _refine_inputs(
+                        r, [300, 120, 0, 33], dev, ranges)
+                    for kw in ({}, {"with_first_hits": True},
+                               {"with_analytics": True}):
+                        out.extend(_as_tuple(refine.refine_tracks_batched(
+                            pts, rows, cov, 300, **kw)))
+                    out.extend(refine.refine_tracks(
+                        pts[0], rows[0], cov, 300, with_analytics=True))
+            else:
+                pts, rows, _, cons = _refine_inputs(
+                    r, [300, 120, 0, 33], dev, (150, 40, 5000))
+                multi = _words(pack_constraints_multi(
+                    [cons[:1], cons[:2], cons]), dev)
+                for kw in ({}, {"with_first_hits": True},
+                           {"with_analytics": True}):
+                    out.extend(_as_tuple(refine.refine_tracks_multi(
+                        pts, rows, multi, 300, **kw)))
+            return out
+    elif kernel == "bitmap_intersect":
+        host = [rng.integers(0, 1 << 32, (4, 100_003), dtype=np.uint64)
+                .astype(np.uint32)]
+
+        def run(dev):
+            return bitset.bitmap_intersect(_words(host[0], dev))
+    else:
+        host = [rng.random(900_001) < .01]
+
+        def run(dev):
+            m = torch.from_numpy(host[0]).to(dev)
+            return (*compact.compact(m), *compact.mask_prefix_sum(m))
+
+    def to_host(outs):
+        torch.cuda.synchronize()
+        return [t.cpu() for t in _as_tuple(outs)]
+
+    want = to_host(run(cards[0]))
+    for dev in cards[1:]:
+        for inside in (False, True):
+            _build.reset_kernel_launches()
+            with (torch.cuda.device(dev) if inside
+                  else contextlib.nullcontext()):
+                got = to_host(run(dev))
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                if g.dtype == torch.float64:   # float64 atomics: any order
+                    torch.testing.assert_close(g, w, rtol=1e-12, atol=0)
+                else:
+                    assert torch.equal(g, w)
+            launched = _build.kernel_launches()
+            assert launched and launched == _build.kernel_launches(dev)
+            assert _build.kernel_launches(cards[0]) == {}
+
+
+def _as_tuple(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+@pytest.mark.parametrize("query", ["Q7-agg", "Q1", "Q11"])
+def test_partitions_across_cards_byte_identical(cards, query):
+    """P = 2 and 4 across the cards: selections byte-identical to P = 1
+    on one card and aggregates float64-identical, Σ_p ⌈shards_p/8⌉ fused
+    dispatches plus one merge for an aggregate, each partition's kernels
+    counted on card p mod D, results close to the numpy oracle; a warm
+    repeat copies no buffer and builds no stack on any card."""
+    from repro_torch.core.planner import partition_shards
+    from repro_torch.exec import AdHocEngine
+    cat = _multicard_world()
+    flow, has_refine, has_agg = _multicard_flows()[query]
+    be = TorchBackend()
+    base = AdHocEngine(cat, backend=be, partitions=1).collect(flow)
+    _close(base.to_records(),
+           AdHocEngine(cat, backend=NumpyBackend()).collect(flow)
+           .to_records())
+    for parts in (2, 4):
+        eng = AdHocEngine(cat, backend=be, partitions=parts)
+        for run in ("cold", "warm"):
+            stats = {d: c.stats() for d, c in be.device_caches().items()}
+            ops.reset_launch_counts()
+            _build.reset_kernel_launches()
+            got = eng.collect(flow)
+            pp = partition_shards(got.plan.shard_ids, parts)
+            want = {"run_wave_fused": pp.wave_dispatches(8)}
+            if has_agg:
+                want["merge_partials"] = 1
+            assert ops.launch_counts() == want
+            _same_bytes(got, base)
+            per_card = _per_card(pp.parts, len(cards))
+            for dev, waves in zip(cards, per_card):
+                kc = _build.kernel_launches(dev)
+                assert kc.get("bitmap_intersect_batched", 0) == waves
+                assert kc.get("compact_batched", 0) == waves
+                if has_refine:
+                    assert kc.get("refine_tracks_batched", 0) == waves
+            if run == "warm":
+                for dev, cache in be.device_caches().items():
+                    now = cache.stats()
+                    for k in ("buffers", "keyed", "misses"):
+                        assert now[k] == stats[dev][k], (dev, k)
+
+
+def test_default_partitions_use_every_card(cards, monkeypatch):
+    """C10: with no partition count given, a query on a host with D
+    cards runs D partitions, one a card, byte-identical to P = 1."""
+    from repro_torch.core.planner import PARTITIONS_ENV, partition_shards
+    from repro_torch.exec import AdHocEngine
+    monkeypatch.delenv(PARTITIONS_ENV, raising=False)
+    cat = _multicard_world()
+    flow = _multicard_flows()["Q1"][0]
+    be = TorchBackend()
+    base = AdHocEngine(cat, backend=be, partitions=1).collect(flow)
+    ops.reset_launch_counts()
+    _build.reset_kernel_launches()
+    got = AdHocEngine(cat, backend=be).collect(flow)
+    pp = partition_shards(got.plan.shard_ids, len(cards))
+    assert pp.num_partitions == len(cards)
+    assert ops.launch_counts() == {
+        "run_wave_fused": pp.wave_dispatches(8), "merge_partials": 1}
+    for dev, waves in zip(cards, _per_card(pp.parts, len(cards))):
+        assert waves > 0
+        assert _build.kernel_launches(dev).get("compact_batched") == waves
+    _same_bytes(got, base)
+
+
+def test_failing_partition_reroutes_across_cards(cards):
+    """Q7-agg at P = 4 with partition 1 failing once: its shards go to
+    the survivors' cards, the result is byte-identical to P = 1, and
+    the rerouted plan's waves land on their partitions' cards."""
+    from repro_torch.core.planner import PartitionPlan, partition_shards
+    from repro_torch.exec import AdHocEngine, FaultPlan
+    from repro_torch.launch.elastic import reroute_partitions
+    cat = _multicard_world()
+    flow = _multicard_flows()["Q7-agg"][0]
+    be = TorchBackend()
+    base = AdHocEngine(cat, backend=be, partitions=1).collect(flow)
+    ops.reset_launch_counts()
+    _build.reset_kernel_launches()
+    got = AdHocEngine(cat, backend=be, partitions=4).collect(
+        flow, fault_plan=FaultPlan(fail_once={("partition", 1)}))
+    rerouted = PartitionPlan(reroute_partitions(
+        partition_shards(got.plan.shard_ids, 4).parts, [1]))
+    assert got.profile.retries == 1 and got.coverage == 1.0
+    assert ops.launch_counts() == {
+        "run_wave_fused": rerouted.wave_dispatches(8), "merge_partials": 1}
+    for dev, waves in zip(cards, _per_card(rerouted.parts, len(cards))):
+        assert _build.kernel_launches(dev).get("refine_tracks_batched",
+                                               0) == waves
+    _same_bytes(got, base)
+
+
+def test_server_batch_across_cards(cards):
+    """A coalesced Tesseract batch through ``QueryServer`` at P = 4: one
+    ``run_wave_fused_multi`` a partition's wave, launched on its card;
+    each query's rows equal to the server's own at P = 1."""
+    from repro_torch.core.planner import partition_shards
+    from repro_torch.exec import AdHocEngine
+    from repro_torch.core import fdb
+    from repro_torch.serve import QueryServer
+    from repro_torch.tess import Tesseract
+    cat = _multicard_world()
+    day = 2 * 86400.0
+    flows = [fdb("Trips").tesseract(
+        Tesseract(city_region(a), day + h * 3600, day + (h + 8) * 3600)
+        .also(city_region(b), day + h * 3600, day + (h + 9) * 3600))
+        for a, b, h in (("SF", "Berkeley", 5), ("Berkeley", "SF", 6),
+                        ("Fremont", "SF", 7), ("SF", "Fremont", 8))]
+    be = TorchBackend()
+
+    def batch(parts):
+        srv = QueryServer(AdHocEngine(cat, backend=be, partitions=parts),
+                          cache=False, start=False)
+        futs = [srv.submit(f) for f in flows]
+        ops.reset_launch_counts()
+        _build.reset_kernel_launches()
+        srv.run_pending()
+        assert srv.stats()["coalesced_batches"] == 1
+        return [f.result(60) for f in futs]
+
+    one = batch(1)
+    got = batch(4)
+    pp = partition_shards(got[0].plan.shard_ids, 4)
+    assert ops.launch_counts() == {
+        "run_wave_fused_multi": pp.wave_dispatches(8)}
+    for dev, waves in zip(cards, _per_card(pp.parts, len(cards))):
+        assert _build.kernel_launches(dev).get("refine_tracks_multi",
+                                               0) == waves
+    assert sum(r.batch.n for r in one) > 0
+    for g, w in zip(got, one):
+        _same_bytes(g, w)
+
+
+def test_wrappers_refuse_tensors_of_two_cards(cards):
+    """A kernel handed tensors of two cards raises, in the wrapper's own
+    check or in the launch path's, and launches nothing."""
+    a, b = cards[0], cards[1]
+    gid = torch.zeros(64, dtype=torch.int32, device=a)
+    _build.reset_kernel_launches()
+    with pytest.raises(ValueError, match="different devices"):
+        segment_agg.segment_agg(gid, torch.ones(64, device=b), 3)
+    with pytest.raises(ValueError, match="different devices"):
+        ssm.ssm_scan(torch.ones(1, 4, 8, device=a),
+                     torch.ones(1, 4, 8, device=b))
+    pts, rows, cov, _ = _refine_inputs(np.random.default_rng(1), [40], a)
+    with pytest.raises(ValueError):
+        refine.refine_tracks_batched(pts, rows, cov.to(b), 40)
+    x = torch.zeros(8, dtype=torch.int32, device=a)
+    with pytest.raises(ValueError, match="more than one device") as err:
+        _build.launch("bitset_binary", "repro_bitset_binary", a, x,
+                      x.to(b), torch.empty_like(x), 8, 0)
+    assert str(a) in str(err.value) and str(b) in str(err.value)
+    torch.cuda.synchronize()
+    assert _build.kernel_launches() == {}
