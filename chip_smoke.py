@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card
-(phase 3h on every visible card, with two or more).
+(phases 3h and 3i on every visible card, with two or more).
 
     python3 chip_smoke.py
 
@@ -102,6 +102,30 @@ around it: it imports nothing of the JAX package.  Phases:
    times, each card's idle share and where a P = 4 run's host time goes
    on ``cards`` lines.  While it runs no partition count is set, and
    phases 3-3g, 4 and 5 run at P = 1 on card 0 whatever the card count;
+3i. mesh (with two CUDA devices or more; with one it prints a line saying
+   it did not run): the ML meshes, one worker process a card started with
+   ``python -m torch.distributed.run --standalone`` (this script with
+   ``--mesh-worker``, NCCL, ``PYTHONPATH=src``); any worker's failure
+   fails the phase.  Qwen1.5-0.5B at full width and depth (24 layers, d
+   1024, 16/16 heads, d_ff 2816, vocab 151936, untied), float32 params and
+   activations, TF32 off, ``remat="full"``, batch 8 × 512 from
+   ``TokenPipeline``, two ``ModelBundle`` train steps on each mesh — on
+   four cards data 4 (plain, ``zero1``, ``fsdp``) and data 2 × model 2
+   (``seq_parallel`` on and off, ``compress_grads``), on two cards data 2
+   and model 2 — each held against the one-device step on card 0 from the
+   same seed with phase 3g's bounds (loss, grad norm, first-step
+   gradients leaf by leaf, the STEP_SIGNAL rule for the first update, the
+   last params within 2·Σ lr); each rank's local bytes of params and
+   optimizer state equal to the specs' per-device bytes
+   (``reshard_plan``); ``compressed_psum`` over the data axis against the
+   numpy mean of the dequantized int8 payloads; ``train_loop(mesh=)``
+   saving at step 2 on 2 × 2 (model 2 on two cards), the checkpoint
+   restored onto data 4 (data 2) bit for bit and placed as that mesh's
+   specs say, and a resume there running steps 2–3; no kernel launched on
+   any card.  ``mesh`` lines: each mesh's warm step ms and tokens/s beside
+   the one-device step, peak bytes a card, each card's busy share and the
+   share of its device time in NCCL kernels (``torch.profiler``, one more
+   step), and the seconds the phase took;
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the largest shape the main path gave it (both segment_agg branches —
    the shared one must give the same bits from two calls, and the library
@@ -150,6 +174,10 @@ cannot then take the one-card route), and otherwise runs as above.
 
 runs phases 2 and 4b alone for the port under ``ROOT/src`` (two trees'
 launch paths compared in one call, one process each).
+
+    python3 chip_smoke.py --mesh-only
+
+runs phase 1's card line and phase 3i alone (two cards or more).
 
 Tolerances: selections, ids, counts and integer tables are exact.  A
 kernel's float64 sums may differ from the plain version's only by
@@ -728,6 +756,15 @@ def main(require_cards: int = 1) -> int:
               "(python3 chip_smoke.py --require-cards 4 on a host with "
               "four)")
     phase_done("3h cards")
+
+    # ------------------------------------------------------------- 3i. mesh
+    if n_cards > 1:
+        mesh_phase(torch, n_cards)
+    else:
+        print("mesh: phase 3i did not run: one CUDA device is visible, and "
+              "a device mesh needs two or more (python3 chip_smoke.py "
+              "--require-cards 4 on a host with four)")
+    phase_done("3i mesh")
     for mod, name in wrappers:
         setattr(mod, name, originals[name])
 
@@ -2902,6 +2939,430 @@ def profile_queries(torch, queries, sessions) -> None:
             "profiled_wall_ms": wall_ms, **busy}))
 
 
+MESH_ARCH = "qwen1_5_0_5b"
+MESH_BATCH, MESH_SEQ, MESH_STEPS = 8, 512, 2
+#: (name, mesh shape (data, model), TrainConfig fields) on four cards and
+#: on two or three
+MESHES_4 = [("data4", (4, 1), {}),
+            ("data4_zero1", (4, 1), {"zero1": True}),
+            ("data4_fsdp", (4, 1), {"fsdp": True}),
+            ("2x2", (2, 2), {}),
+            ("2x2_no_seq_parallel", (2, 2), {"seq_parallel": False}),
+            ("2x2_compress_grads", (2, 2), {"compress_grads": True})]
+MESHES_2 = [("data2", (2, 1), {}), ("model2", (1, 2), {})]
+#: compressed_psum's payload a rank, and its bound against numpy: the
+#: mean's order of sums
+PSUM_N, PSUM_RTOL = 1 << 20, 1e-6
+MESH_TIMEOUT_S = 750
+
+
+def _mesh_tc(kw):
+    from repro_torch.ml.model import TrainConfig
+    return TrainConfig(lr=1e-3, warmup=1, total_steps=MESH_STEPS + 2,
+                       loss_chunk=None, remat="full", **kw)
+
+
+def _local_bytes(tree):
+    from repro_torch.ml.optim import tree_leaves
+    return sum(t.to_local().numel() * t.element_size()
+               for t in tree_leaves(tree))
+
+
+def _placed_as(tree, specs, mesh):
+    from repro_torch.ml import sharding as sh
+    from repro_torch.ml.optim import tree_leaves
+    return all(t.placements == sh.placements(s, mesh) for t, s in
+               zip(tree_leaves(tree), (s for _, s in sh.leaf_items(specs))))
+
+
+def _nccl_busy(torch, prof, wall_ms):
+    """This rank's card over a profiler window: busy ms, idle share and the
+    share of device time in NCCL kernels."""
+    from torch.autograd import DeviceType
+    busy = nccl = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        busy += ms
+        if "nccl" in e.key.lower():
+            nccl += ms
+    if busy == 0.0:
+        return {"busy_ms": "not measured", "idle_share": "not measured",
+                "nccl_share": "not measured"}
+    return {"busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "nccl_share": nccl / busy}
+
+
+def _one_device(torch, cfg, tc, batch):
+    """The one-device step on this process's card (card 0): first-step
+    gradients, params after each step (on the host), metrics, step ms,
+    peak bytes."""
+    from repro_torch.ml.model import ModelBundle
+    from repro_torch.ml.optim import tree_leaves
+    mb = ModelBundle(cfg, train_cfg=tc, device="cuda")
+    params = mb.init_params(0)
+    grads = [g.cpu() for g in tree_leaves(mb.loss_and_grads(params,
+                                                            batch)[3])]
+    opt, kept, metrics, ms = mb.init_opt_state(params), [], [], []
+    step = mb.make_train_step()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        kept.append([t.cpu() for t in tree_leaves(params)])
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"grads": grads, "p1": kept[0], "pn": kept[-1],
+            "metrics": metrics, "ms": ms, "peak": peak}
+
+
+def _mesh_run(torch, dist, cfg, mesh, name, kw, batch, ref):
+    """One mesh layout: placement and bytes, the first step's gradients
+    and two steps against the one-device run ``ref`` (rank 0 holds it),
+    step times, peak bytes, and one profiled step."""
+    from repro_torch.launch.elastic import per_device_bytes, reshard_plan
+    from repro_torch.ml import sharding as sh
+    from repro_torch.ml.model import ModelBundle
+    from repro_torch.ml.optim import tree_leaves
+    lead = dist.get_rank() == 0
+    mb = ModelBundle(cfg, mesh, train_cfg=_mesh_tc(kw))
+    p = mb.init_params(0)
+    params = mb.shard_params(p)
+    opt = mb.shard_opt_state(mb.init_opt_state(p))
+    del p
+    torch.cuda.empty_cache()
+    shapes = mb.params_shape()
+    pspec, ospec = mb.param_specs(shapes), mb.opt_specs(shapes)
+    m_shapes = sh.map_with_path(lambda _, t: torch.empty(
+        t.shape, dtype=torch.float32, device="meta"), shapes)
+    n_moments = 3 if kw.get("compress_grads") else 2
+    row = {"mesh": name, "shape": list(mesh.mesh.shape), **kw,
+           "param_bytes": _local_bytes(params),
+           "want_param_bytes": reshard_plan(mb, mb)[
+               "param_bytes_per_device_before"],
+           "opt_bytes": _local_bytes(opt),
+           "want_opt_bytes": n_moments * per_device_bytes(m_shapes, ospec,
+                                                          mesh) + 4,
+           "params_placed": _placed_as(params, pspec, mesh),
+           "moments_placed": _placed_as(opt["adam"]["m"], ospec, mesh)}
+    sbatch = mb.shard_batch(batch)
+    grads = tree_leaves(mb.loss_and_grads(params, sbatch)[3])
+    g_rel = 0.0
+    for i, g in enumerate(grads):
+        full = g.full_tensor()
+        if lead:
+            want = ref["grads"][i]
+            g_rel = max(g_rel, float((full.cpu() - want).abs().max()
+                                     / (want.abs().max() + 1e-30)))
+    del grads, full
+    torch.cuda.empty_cache()
+    step = mb.make_train_step()
+    torch.cuda.reset_peak_memory_stats()
+    ms, metrics, sig_n, sig_err, last = [], [], 0, 0.0, 0.0
+    clip = min(1.0, 1.0 / ref["metrics"][0]["grad_norm"]) if lead else 1.0
+    for i in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, sbatch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        for j, t in enumerate(tree_leaves(params)):
+            full = t.full_tensor()
+            if not lead:
+                continue
+            got = full.cpu()
+            if i == 0:      # the STEP_SIGNAL rule, as phase 3g
+                g = ref["grads"][j].abs()
+                sig = (g >= STEP_SIGNAL * g.max()) & (g * clip >= 1e-6)
+                if bool(sig.any()):
+                    sig_n += int(sig.sum())
+                    sig_err = max(sig_err, float(
+                        (got - ref["p1"][j]).abs()[sig].max()))
+            else:
+                last = max(last, float((got - ref["pn"][j]).abs().max()))
+        del full
+    peak = torch.cuda.max_memory_allocated()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    dist.barrier()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, sbatch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    card = {"card": torch.cuda.current_device(), "peak_bytes": peak,
+            "profiled_step_ms": wall, **_nccl_busy(torch, prof, wall)}
+    del prof, params, opt, sbatch
+    torch.cuda.empty_cache()
+    row.update(step_ms=ms, metrics=metrics, grad_max_rel=g_rel,
+               signal_params=sig_n, signal_max_abs=sig_err,
+               last_param_max_abs=last, cards=card)
+    return row
+
+
+def _psum_check(torch, np, dist, mesh):
+    """``compressed_psum`` over the mesh's data dim on NCCL against the
+    numpy mean of the group's dequantized int8 payloads."""
+    from repro_torch.ml.optim import compressed_psum
+    x = np.random.default_rng(100 + dist.get_rank()).normal(
+        size=PSUM_N).astype(np.float32)
+    group = mesh["data"]
+    got = compressed_psum(torch.from_numpy(x).cuda(), group).cpu().numpy()
+    ranks = dist.get_process_group_ranks(group.get_group())
+    xs = [None] * dist.get_world_size()
+    dist.all_gather_object(xs, x)
+    deq = []
+    for r in ranks:
+        scale = np.maximum(np.abs(xs[r]).max(), np.float32(1e-12)) \
+            / np.float32(127.0)
+        q = np.clip(np.round(xs[r] / scale), -127, 127).astype(np.int8)
+        deq.append(q.astype(np.float32) * scale)
+    want = np.mean(np.stack(deq), axis=0, dtype=np.float32)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    return {"ranks": ranks, "n": PSUM_N, "max_rel": err,
+            "wire_bytes_int8": len(ranks) * (PSUM_N + 4),
+            "wire_bytes_fp32_ring": 2 * PSUM_N * 4}
+
+
+def _elastic_check(torch, dist, cfg, mesh_a, mesh_b, ckpt):
+    """``train_loop(mesh=)`` on mesh A saves at step 2; the checkpoint
+    restores onto mesh B bit for bit, placed as B's specs say; a resume
+    on B runs steps 2–3."""
+    import numpy as np
+    from repro_torch.ckpt.checkpoint import restore_checkpoint
+    from repro_torch.launch.train import train_loop
+    from repro_torch.ml.model import ModelBundle, TrainConfig
+    from repro_torch.ml.optim import tree_leaves
+    lead = dist.get_rank() == 0
+    kw = dict(reduced=False, batch=MESH_BATCH, seq=MESH_SEQ, ckpt_dir=ckpt,
+              log_every=1, device="cuda")
+    t0 = time.perf_counter()
+    lines_a, lines_b = [], []
+    params, opt, first = train_loop(cfg, steps=2, ckpt_every=2, mesh=mesh_a,
+                                    print_fn=lines_a.append, **kw)
+    saved = []
+    for t in tree_leaves({"params": params, "opt": opt}):
+        full = t.full_tensor()
+        if lead:
+            saved.append(full.cpu())
+    del full
+    seconds_a = time.perf_counter() - t0
+    b = ModelBundle(cfg, mesh_b, train_cfg=TrainConfig(remat="full"))
+    template = {"params": params, "opt": opt,
+                "data": {"seed": np.int64(0), "step": np.int64(0)},
+                "step": np.int64(0)}
+    t0 = time.perf_counter()
+    got, step = restore_checkpoint(ckpt, template, shardings={
+        "params": b.param_shardings(), "opt": b.opt_state_shardings(),
+        "data": None, "step": None})
+    restore_s = time.perf_counter() - t0
+    del params, opt
+    shapes = b.params_shape()
+    equal = True
+    for i, t in enumerate(tree_leaves({"params": got["params"],
+                                       "opt": got["opt"]})):
+        full = t.full_tensor()
+        if lead:
+            equal = equal and torch.equal(full.cpu(), saved[i])
+    placed = _placed_as(got["params"], b.param_specs(shapes), mesh_b) and \
+        _placed_as(got["opt"]["adam"]["m"], b.opt_specs(shapes), mesh_b)
+    del got, full, saved
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params, opt, again = train_loop(cfg, steps=4, ckpt_every=1000,
+                                    mesh=mesh_b, resume=True,
+                                    print_fn=lines_b.append, **kw)
+    placed_b = _placed_as(params, b.param_specs(shapes), mesh_b)
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"from": list(mesh_a.mesh.shape), "to": list(mesh_b.mesh.shape),
+            "saved_step": step, "bit_equal": equal, "placed": placed,
+            "first": first, "again": again, "lines": lines_a + lines_b,
+            "resumed_params_placed": placed_b, "run_a_s": seconds_a,
+            "restore_s": restore_s,
+            "resume_run_s": time.perf_counter() - t0}
+
+
+def mesh_worker_main(out_dir: str) -> int:
+    """``--mesh-worker OUT_DIR``: one rank of phase 3i, started by
+    ``torch.distributed.run`` (one process a card, NCCL).  Rank 0 writes
+    every rank's results to ``OUT_DIR/mesh.json``."""
+    import os
+    from dataclasses import replace
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    local = int(os.environ["LOCAL_RANK"])
+    torch.cuda.set_device(local)
+    dist.init_process_group("nccl")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_local_mesh
+    t_phase = time.perf_counter()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    _build.reset_kernel_launches()
+    cfg = replace(get_config(MESH_ARCH), act_dtype="float32")
+    pipe = TokenPipeline(cfg.vocab_size, MESH_BATCH, MESH_SEQ)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(pipe).items()}
+    pipe.close()
+    layouts = MESHES_4 if world >= 4 else MESHES_2
+    meshes, refs, rows = {}, {}, []
+    for name, shape, kw in layouts:
+        if shape not in meshes:
+            meshes[shape] = make_local_mesh(*shape)
+        key = bool(kw.get("compress_grads"))
+        if key not in refs:
+            refs[key] = _one_device(torch, cfg, _mesh_tc(
+                {"compress_grads": key}), batch) if rank == 0 else None
+            dist.barrier()
+        rows.append(_mesh_run(torch, dist, cfg, meshes[shape], name, kw,
+                              batch, refs[key]))
+    cards = [None] * world
+    dist.all_gather_object(cards, [r.pop("cards") for r in rows])
+    for i, row in enumerate(rows):
+        row["cards"] = [c[i] for c in cards]
+    res = {"world": world, "rows": rows,
+           "one_device": {str(k): {"ms": v["ms"], "metrics": v["metrics"],
+                                   "peak": v["peak"]}
+                          for k, v in refs.items() if v is not None}}
+
+    def dump(**more):
+        """Rank 0 writes what is known so far (a later failure still
+        leaves the mesh rows)."""
+        res.update(more, seconds=time.perf_counter() - t_phase)
+        if rank == 0:
+            with open(os.path.join(out_dir, "mesh.json"), "w") as fh:
+                json.dump(res, fh)
+
+    dump()
+    shapes = [s for _, s, _ in layouts]
+    dump(psum=_psum_check(torch, np, dist, max(
+        meshes.values(), key=lambda m: m["data"].size())))
+    dump(elastic=_elastic_check(torch, dist, cfg, meshes[shapes[-1]],
+                                meshes[shapes[0]],
+                                os.path.join(out_dir, "ckpt")))
+    launches = [None] * world
+    dist.all_gather_object(launches, sum(_build.kernel_launches().values()))
+    dump(launches=launches)
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(torch, n_cards: int) -> None:
+    """Phase 3i: the ML meshes (module docstring).  Starts one worker a
+    card with ``torch.distributed.run`` and checks what rank 0 wrote; a
+    worker that fails fails the phase."""
+    import os
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()        # card 0 is also rank 0's
+    nproc = 4 if n_cards >= 4 else 2
+    out = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    here = Path(__file__).resolve()
+    env = dict(os.environ, PYTHONPATH=str(here.parent / "src"),
+               OMP_NUM_THREADS="1")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={nproc}", str(here), "--mesh-worker", out],
+            env=env, capture_output=True, text=True,
+            timeout=MESH_TIMEOUT_S)
+        if proc.returncode != 0:
+            if os.path.exists(os.path.join(out, "mesh.json")):
+                with open(os.path.join(out, "mesh.json")) as fh:
+                    print("mesh partial " + fh.read())
+            fail(f"mesh: the workers exited {proc.returncode}:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        with open(os.path.join(out, "mesh.json")) as fh:
+            res = json.load(fh)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    mesh_report(res, t0)
+
+
+def mesh_report(res, t0) -> None:
+    """Phase 3i's checks and ``mesh`` lines over rank 0's results."""
+    smi = card_line()
+    if any(res["launches"]):
+        fail(f"mesh: kernels launched on the cards: {res['launches']}")
+    for row in res["rows"]:
+        ref = res["one_device"][str(bool(row.get("compress_grads")))]
+        checks = {
+            "loss": all(abs(a["loss"] - b["loss"]) <= STEP_LOSS_RTOL
+                        * abs(b["loss"]) for a, b in
+                        zip(row["metrics"], ref["metrics"])),
+            "grad_norm": all(abs(a["grad_norm"] - b["grad_norm"])
+                             <= STEP_GNORM_RTOL * b["grad_norm"]
+                             for a, b in zip(row["metrics"],
+                                             ref["metrics"])),
+            "grads": row["grad_max_rel"] <= STEP_GRAD_REL,
+            "first_update": row["signal_params"] > 0
+            and row["signal_max_abs"] <= STEP_PARAM_ATOL,
+            "last_params": row["last_param_max_abs"]
+            <= 2 * sum(m["lr"] for m in ref["metrics"]),
+            "placed": row["params_placed"] and row["moments_placed"],
+            "param_bytes": row["param_bytes"] == row["want_param_bytes"],
+            "opt_bytes": row["opt_bytes"] == row["want_opt_bytes"]}
+        warm = row["step_ms"][-1]
+        tokens = MESH_BATCH * MESH_SEQ
+        line = {"mesh": row["mesh"], "shape": row["shape"],
+                "arch": MESH_ARCH, "batch": [MESH_BATCH, MESH_SEQ],
+                "warm_step_ms": warm, "tokens_per_s": tokens / warm * 1e3,
+                "cold_step_ms": row["step_ms"][0],
+                "one_device_warm_ms": ref["ms"][-1],
+                "one_device_tokens_per_s": tokens / ref["ms"][-1] * 1e3,
+                "one_device_peak_bytes": ref["peak"],
+                "peak_bytes_per_card": [c["peak_bytes"]
+                                        for c in row["cards"]],
+                "busy_share": [c["busy_ms"] if c["busy_ms"] ==
+                               "not measured" else 1 - c["idle_share"]
+                               for c in row["cards"]],
+                "nccl_share": [c["nccl_share"] for c in row["cards"]],
+                "profiled_step_ms": [c["profiled_step_ms"]
+                                     for c in row["cards"]],
+                "param_bytes_per_card": row["param_bytes"],
+                "opt_bytes_per_card": row["opt_bytes"],
+                "loss": [m["loss"] for m in row["metrics"]],
+                "one_device_loss": [m["loss"] for m in ref["metrics"]],
+                "grad_max_rel": row["grad_max_rel"],
+                "signal_max_abs": row["signal_max_abs"],
+                "last_param_max_abs": row["last_param_max_abs"],
+                "checks": checks, "card": smi}
+        print("mesh " + json.dumps(line))
+        if not all(checks.values()):
+            fail(f"mesh {row['mesh']}: {checks}")
+    psum = res["psum"]
+    print("mesh " + json.dumps({"sub": "compressed_psum", **psum,
+                                "bound_rel": PSUM_RTOL}))
+    if not psum["max_rel"] <= PSUM_RTOL:
+        fail(f"mesh compressed_psum: {psum}")
+    el = res["elastic"]
+    print("mesh " + json.dumps({"sub": "elastic_resume", **el}))
+    again = [s for s, _ in el["again"]]
+    if not (el["saved_step"] == 2 and el["bit_equal"] and el["placed"]
+            and el["resumed_params_placed"] and again == [2, 3]
+            and "resumed from step 2" in el["lines"]
+            and all(math.isfinite(l) for _, l in el["again"])):
+        fail(f"mesh elastic: {el}")
+    print("mesh " + json.dumps({"sub": "phase", "cards": res["world"],
+                                "worker_seconds": res["seconds"],
+                                "seconds": time.perf_counter() - t0,
+                                "kernel_launches": res["launches"]}))
+
+
 def launch_path_main(root: str) -> int:
     """``--launch-path ROOT``: build the kernels of the port under
     ``ROOT/src`` and print its ``launch_path`` line alone — run it once
@@ -2920,9 +3381,27 @@ def launch_path_main(root: str) -> int:
     return 0
 
 
+def mesh_only_main() -> int:
+    """``--mesh-only``: phase 1's card line and phase 3i alone (two cards
+    or more)."""
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke: --mesh-only needs two CUDA devices or more",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    print(card_line())
+    mesh_phase(torch, torch.cuda.device_count())
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--launch-path"]:
         sys.exit(launch_path_main(sys.argv[2] if len(sys.argv) > 2 else "."))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-only"]:
+        sys.exit(mesh_only_main())
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port (see the module docstring).")

@@ -1,6 +1,8 @@
-"""Async, atomic checkpointing with keep-last-k retention.
+"""Async, atomic checkpointing with keep-last-k retention and elastic
+resharding.
 
-The port of ``repro/ckpt/checkpoint.py`` for one process:
+The port of ``repro/ckpt/checkpoint.py``, for one process or the ranks of
+a process group (one per card):
 
   * **one shard** — a step is ``step-XXXXXXXX/shard-00000.npz``, keyed by
     the leaves' paths joined with ``__`` (``params__blocks__slot0__…``),
@@ -8,7 +10,9 @@ The port of ``repro/ckpt/checkpoint.py`` for one process:
     reference's layout, so each package restores the other's checkpoints;
   * **async** — ``save`` snapshots every leaf to host memory (a copy, so
     later in-place updates cannot reach it) before the writer thread
-    starts; training continues immediately;
+    starts; training continues immediately.  A DTensor leaf is gathered
+    whole first (``full_tensor()``, a collective: every rank calls
+    ``save``), and rank 0 alone writes;
   * **atomic** — writes go to ``step-XXXXXXXX.tmp/`` and are committed
     with one ``os.replace``; a crashed save is never mistaken for a
     valid checkpoint (restore picks the newest *committed* step);
@@ -16,9 +20,14 @@ The port of ``repro/ckpt/checkpoint.py`` for one process:
     a writer, so a non-blocking save does not wait for its write
     (``CheckpointManager.wait`` joins them, then prunes).
 
-Restore takes a target ``device`` where the reference takes shardings:
-tensor leaves of the template come back as tensors there, other leaves
-as numpy arrays.
+Restore puts tensor leaves of the template on a target ``device`` (other
+leaves come back as numpy arrays) or, with ``shardings`` — a tree of
+(mesh, placements) pairs, as ``ModelBundle.param_shardings`` gives them —
+distributes each leaf to its target placements: the **elastic
+resharding** path, where the saving mesh is irrelevant and only the
+target's matters.  A DTensor template leaf without a sharding keeps the
+template's placements.  On a process group, every rank waits at a
+barrier until rank 0's pending writes are committed before it reads.
 
 bfloat16: numpy has no bfloat16 and the port does not need ``ml_dtypes``.
 The reference's npz stores a bf16 leaf as 2-byte void records (``|V2``)
@@ -34,6 +43,7 @@ import json
 import os
 import re
 import shutil
+import sys
 import threading
 from typing import Any, Dict, List, Optional
 
@@ -67,11 +77,34 @@ def _rebuild(template, flat: Dict[str, Any], fn, prefix=()):
     key = "/".join(prefix)
     if key not in flat:
         raise KeyError(f"checkpoint missing leaf {key!r}")
-    return fn(template, flat[key])
+    return fn(key, template, flat[key])
+
+
+def _rank() -> int:
+    """This process's rank in the default process group (0 without
+    one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier():
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor, without importing DTensor's module (a
+    second on first import, inside a save's snapshot): no DTensor exists
+    before it is."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def _to_host(leaf) -> tuple:
     """A leaf → (numpy array to write, manifest dtype name), copied."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -82,9 +115,11 @@ def _to_host(leaf) -> tuple:
     return arr, str(arr.dtype)
 
 
-def _from_host(template, arr: np.ndarray, device):
-    """A stored array → the template leaf's kind: a tensor (on ``device``,
-    or the template's own) for a tensor leaf, else the numpy array."""
+def _from_host(template, arr: np.ndarray, device, sharding=None):
+    """A stored array → the template leaf's kind: for a tensor leaf a
+    tensor on ``device`` (or the template's own), or a DTensor at
+    ``sharding``'s (mesh, placements) (or a DTensor template's); else the
+    numpy array."""
     if not isinstance(template, torch.Tensor):
         return arr
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
@@ -93,7 +128,18 @@ def _from_host(template, arr: np.ndarray, device):
         # np.asarray, not np.ascontiguousarray: that one makes a 0-d leaf
         # (AdamW's step) 1-d
         t = torch.from_numpy(np.asarray(arr, order="C"))
-    return t.to(device if device is not None else template.device)
+    if sharding is None and _is_dtensor(template):
+        sharding = (template.device_mesh, template.placements)
+    if sharding is None:
+        return t.to(device if device is not None else template.device)
+    from torch.distributed.tensor import distribute_tensor
+    mesh, placements = sharding
+    kind = mesh.device_type
+    on = torch.device(kind, torch.cuda.current_device()) \
+        if kind == "cuda" else torch.device(kind)
+    # every rank read the same file: each keeps its own piece, no copy
+    # goes over the wire
+    return distribute_tensor(t.to(on), mesh, placements, src_data_rank=None)
 
 
 def save_checkpoint(directory: str, step: int, tree, *,
@@ -101,14 +147,23 @@ def save_checkpoint(directory: str, step: int, tree, *,
     """Write one step. Returns the writer thread (joined if blocking)."""
     tmp = os.path.join(directory, f"step-{step:08d}.tmp")
     final = os.path.join(directory, f"step-{step:08d}")
-    os.makedirs(tmp, exist_ok=True)
+    writer = _rank() == 0
     # Snapshot to host memory NOW (async-safe under in-place updates).
     host: Dict[str, np.ndarray] = {}
     meta = {}
     for path, leaf in _items(tree):
+        if not writer:          # take part in the DTensor gathers only
+            if _is_dtensor(leaf):
+                leaf.full_tensor()
+            continue
         arr, dtype = _to_host(leaf)
         host["__".join(path)] = arr
         meta["/".join(path)] = {"shape": list(arr.shape), "dtype": dtype}
+    if not writer:
+        t = threading.Thread(target=lambda: None)
+        t.start()
+        return t
+    os.makedirs(tmp, exist_ok=True)
 
     def write():
         np.savez(os.path.join(tmp, "shard-00000.npz"), **host)
@@ -133,19 +188,34 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, template, *, step: Optional[int] = None,
-                       device=None):
+                       device=None, shardings=None):
     """Restore into ``template``'s structure → (tree, step).  Tensor leaves
-    land on ``device`` (or, when None, on their template leaf's device);
-    the saving device and dtype layout are irrelevant."""
+    land on ``device`` (or, when None, on their template leaf's device),
+    or are distributed as ``shardings`` says: a tree of the template's
+    structure, down to (mesh, placements) pairs or None (no sharding for
+    that subtree).  The saving device, mesh and dtype layout are
+    irrelevant."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no committed checkpoints in {directory}")
     d = os.path.join(directory, f"step-{step:08d}")
     with np.load(os.path.join(d, "shard-00000.npz")) as z:
         flat = {k.replace("__", "/"): z[k] for k in z.files}
-    tree = _rebuild(template, flat,
-                    lambda leaf, arr: _from_host(leaf, arr, device))
+    placed = {"/".join(p): s for p, s in _sharding_items(shardings)} \
+        if shardings is not None else {}
+    tree = _rebuild(template, flat, lambda key, leaf, arr: _from_host(
+        leaf, arr, device, placed.get(key)))
     return tree, step
+
+
+def _sharding_items(tree, prefix=()):
+    """(path, (mesh, placements) or None) of a shardings tree: a pair or
+    None is a leaf, and None covers the subtree below it."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _sharding_items(v, prefix + (str(k),))
+    else:
+        yield prefix, tree
 
 
 class CheckpointManager:
@@ -182,15 +252,20 @@ class CheckpointManager:
             t.join()
         self._gc()
 
-    def restore_or_none(self, template, device=None):
+    def restore_or_none(self, template, shardings=None, device=None):
         self.wait()
+        _barrier()      # rank 0's commits are visible to every rank
         if latest_step(self.directory) is None:
             return None, None
-        return restore_checkpoint(self.directory, template, device=device)
+        return restore_checkpoint(self.directory, template, device=device,
+                                  shardings=shardings)
 
     def _gc(self):
         """Remove all but the newest ``keep`` committed steps (a step
-        being written is not committed: its directory ends in ``.tmp``)."""
+        being written is not committed: its directory ends in ``.tmp``).
+        Rank 0 alone prunes, as it alone writes."""
+        if _rank() != 0:
+            return
         steps = sorted(
             int(m.group(1)) for f in os.listdir(self.directory)
             if (m := re.fullmatch(r"step-(\d+)", f)))

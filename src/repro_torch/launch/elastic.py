@@ -1,15 +1,48 @@
-"""Elastic recovery on the partition axis of query execution.
+"""Elastic scaling: restart a job on a different mesh from checkpoints,
+and elastic recovery on the partition axis of query execution.
 
-:func:`reroute_partitions` is host code, copied from the JAX package's
-``launch/elastic.py``.  Its ``reshard_plan`` (a train state's topology
-move) needs ``ModelBundle`` and comes with the checkpoint and train
-launcher (ROADMAP A12).
+The port of ``repro/launch/elastic.py``.  Checkpoints are mesh-agnostic
+(one host npz + manifest), and ``restore_checkpoint(shardings=)``
+re-places leaves with the *target* placements, so a train state saved on
+mesh A restores bit-exactly onto mesh B (``launch.train --resume``).
+:func:`reshard_plan` summarizes what such a move changes (per-device
+parameter bytes before/after, from the sharding rules' specs).
+:func:`reroute_partitions` is host code, copied from the reference.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
-__all__ = ["reroute_partitions"]
+__all__ = ["reshard_plan", "reroute_partitions", "per_device_bytes"]
+
+
+def per_device_bytes(shapes, specs, mesh) -> int:
+    """Bytes one device holds of a tree of (meta) tensors laid out by a
+    tree of specs on ``mesh``: each leaf's bytes over the number of
+    pieces its spec cuts it into."""
+    from ..ml.sharding import leaf_items, spec_divisor
+    total = 0.0
+    for (_, leaf), (_, spec) in zip(leaf_items(shapes), leaf_items(specs)):
+        total += leaf.numel() * leaf.element_size() / \
+            max(spec_divisor(spec, mesh), 1)
+    return int(total)
+
+
+def reshard_plan(mb_from, mb_to) -> Dict:
+    """Summarize a topology move of the same architecture between two
+    ``ModelBundle``s (each on a ``DeviceMesh`` or a ``MeshShape``)."""
+    from ..ml.sharding import mesh_sizes
+    shape = mb_from.params_shape()
+    before = per_device_bytes(shape, mb_from.param_specs(shape),
+                              mb_from.mesh)
+    after = per_device_bytes(shape, mb_to.param_specs(shape), mb_to.mesh)
+    return {
+        "from_mesh": mesh_sizes(mb_from.mesh),
+        "to_mesh": mesh_sizes(mb_to.mesh),
+        "param_bytes_per_device_before": before,
+        "param_bytes_per_device_after": after,
+        "ratio": after / max(before, 1),
+    }
 
 
 def reroute_partitions(parts: List[List[int]],

@@ -15,7 +15,11 @@ semantic definition:
     (optionally a rolling window cache), plain PyTorch as the reference's
     is plain jnp.
 
-The reference's sharding constraints are no-ops without a mesh and go.
+On a mesh (DTensor inputs, ``ml.sharding``'s active mesh),
+:func:`chunked_attention` pins the grouped queries and the online-softmax
+state as the reference does: heads over ``model`` when the KV head count
+divides it, else the query sequence, batch over the batch axes.  Without a
+mesh the pins return their inputs.
 
 KV caches: dict(k, v [B, Hkv, Smax, hd], len int).  Rolling caches
 (SWA / local layers) store only ``window`` positions and are written
@@ -24,6 +28,7 @@ modulo-window; absolute positions are reconstructed for masking.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -31,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .layers import dense_init, mrope, rope
+from .sharding import active_mesh, constrain, is_dtensor, mesh_sizes
 
 __all__ = ["attn_init", "attn_apply", "chunked_attention",
            "decode_attention", "cache_update", "init_cache", "AttnSpec"]
@@ -92,6 +98,17 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
     qg = q.reshape(b, hkv, group, sq, d)
+    # pin q and the online-softmax carry (the reference's): heads over
+    # model when they divide it, otherwise the query sequence
+    mesh = active_mesh()
+    n_model = mesh_sizes(mesh).get("model", 1) if mesh is not None else 1
+    if hkv % n_model == 0 and hkv >= n_model:
+        pin = ("batch", "model", None, None, None)
+    elif sq % n_model == 0 and sq >= n_model:
+        pin = ("batch", None, None, "model", None)
+    else:
+        pin = ("batch", None, None, None, None)
+    qg = constrain(qg, pin)
     q_pos = torch.arange(sq, device=q.device) + (skv - sq)
     m = torch.full((b, hkv, group, sq, 1), -1e30, dtype=torch.float32,
                    device=q.device)
@@ -101,12 +118,32 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                       device=q.device)
     for i in range(nblk):
         k0 = i * bk
-        m, l, acc = checkpoint(
+        m, l, acc = (constrain(t, pin) for t in checkpoint(
             _kv_block, qg, k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk], m, l,
             acc, k0, skv, q_pos, causal=causal, window=window,
-            softcap=softcap, scale=scale, use_reentrant=False)
+            softcap=softcap, scale=scale, use_reentrant=False))
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _whole_heads(q, k, v) -> bool:
+    """Whether q, k, v [B, H, S, D] are DTensors laid out alike and cut
+    only along batch and heads, evenly: each rank's pieces are then whole
+    rows and whole heads (its q heads grouped with its own KV heads)."""
+    if not all(is_dtensor(t) for t in (q, k, v)) \
+            or not q.placements == k.placements == v.placements \
+            or not q.device_mesh == k.device_mesh == v.device_mesh:
+        return False
+    cuts = {0: 1, 1: 1}
+    for i, p in enumerate(q.placements):
+        if p.is_shard():
+            if p.dim not in cuts:
+                return False
+            cuts[p.dim] *= q.device_mesh.size(i)
+        elif not p.is_replicate():          # a partial sum
+            return False
+    return all(t.shape[d] % n == 0 for t in (q, k, v)
+               for d, n in cuts.items())
 
 
 def _attention(q, k, v, *, causal, window, softcap, scale,
@@ -115,8 +152,18 @@ def _attention(q, k, v, *, causal, window, softcap, scale,
     ``kops.flash_attention`` (the CUDA kernel on the card, no backward),
     ``"reference"`` through :func:`chunked_attention`."""
     if impl == "reference":
-        return chunked_attention(q, k, v, causal=causal, window=window,
-                                 softcap=softcap, scale=scale)
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        if _whole_heads(q, k, v):
+            # each rank holds whole batch rows and whole heads: attention
+            # needs no collective, so each runs it on its own pieces (on
+            # the DTensors, the einsums would flatten two sharded dims,
+            # which DTensor's propagation refuses)
+            from torch.distributed.tensor.experimental import local_map
+            at = list(q.placements)     # a list: one output
+            return local_map(partial(chunked_attention, **kw),
+                             out_placements=at, in_placements=(at, at, at),
+                             device_mesh=q.device_mesh)(q, k, v)
+        return chunked_attention(q, k, v, **kw)
     if impl != "kernel":
         raise ValueError(f"impl {impl!r}: expected 'kernel' or 'reference'")
     return kops.flash_attention(q.contiguous(), k.contiguous(),
@@ -147,10 +194,23 @@ def decode_attention(q, cache, *, window: Optional[int] = None,
     ``preferred_element_type=float32``: q is rounded to the cache's dtype
     and the products of cache-dtype values are summed in float32 (exact
     products in float32, then float32 sums), and the probabilities are
-    rounded to the cache's dtype before the value product.
+    rounded to the cache's dtype before the value product.  On a mesh
+    whose ranks hold whole batch rows and heads of q and the cache, each
+    rank attends with its own pieces (as :func:`_attention`).
     """
-    b, hq, _, d = q.shape
     k, v = cache["k"], cache["v"]
+    fn = partial(_decode, n=cache["len"], window=window, softcap=softcap,
+                 rolling=rolling)
+    if _whole_heads(q, k, v):
+        from torch.distributed.tensor.experimental import local_map
+        at = list(q.placements)
+        return local_map(fn, out_placements=at, in_placements=(at, at, at),
+                         device_mesh=q.device_mesh)(q, k, v)
+    return fn(q, k, v)
+
+
+def _decode(q, k, v, *, n, window, softcap, rolling):
+    b, hq, _, d = q.shape
     _, hkv, smax, _ = k.shape
     group = hq // hkv
     scale = 1.0 / math.sqrt(d)
@@ -159,7 +219,6 @@ def decode_attention(q, cache, *, window: Optional[int] = None,
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     kpos = torch.arange(smax, device=q.device)
-    n = cache["len"]
     if rolling:
         valid = kpos < min(n, smax)
     else:

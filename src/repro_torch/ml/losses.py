@@ -19,13 +19,31 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .sharding import is_dtensor
+
 __all__ = ["cross_entropy", "chunked_lm_loss"]
+
+
+def _gold(logits, labels):
+    """``logits[..., labels]``.  Where the vocab dim is sharded over a
+    mesh (a DTensor's ``Shard(-1)``, the LM head's model-axis split), a
+    gather cannot pick across the shards — DTensor fails to reduce the
+    masked partial it makes — so each shard sums its own hits
+    (Megatron's vocab-parallel pick) and the shards' sum is the same
+    value: one term is the logit, the others are zeros."""
+    last = logits.dim() - 1
+    if is_dtensor(logits) and any(
+            p.is_shard(last) for p in logits.placements):
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        hit = labels.long()[..., None] == vocab
+        return torch.where(hit, logits, torch.zeros_like(logits)).sum(-1)
+    return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
 
 
 def cross_entropy(logits, labels, mask=None):
     """logits [..., V] float32, labels [...] int — mean NLL over mask."""
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = _gold(logits, labels)
     nll = logz - gold
     if mask is None:
         return nll.mean()
@@ -41,7 +59,7 @@ def _chunk_nll(h, headc, labels, mask):
     """Σ masked NLL of one chunk (recomputed in backward)."""
     logits = _logits(h, headc)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    gold = _gold(logits, labels)
     return ((logz - gold) * mask.float()).sum()
 
 

@@ -17,6 +17,9 @@ solve each chunk's diagonal recurrence h_t = a_t ⊙ h_{t-1} + bx_t:
     each chunk under ``torch.utils.checkpoint`` as at the reference's
     ``jax.checkpoint``; it is differentiable.
 
+On a mesh the reference path pins each chunk's carry (batch over the
+batch axes, dI over ``model``) through ``ml.sharding.constrain``.
+
 Decode keeps O(1) state: {h: [B, dI, N], conv: [B, K-1, dI]}, one step in
 plain PyTorch.
 """
@@ -30,6 +33,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .layers import dense_init, silu
+from .sharding import constrain
+
+#: the dtype the chunk inputs are staged in, the reference's
+STAGE_DTYPE = torch.bfloat16
 
 __all__ = ["mamba_init", "mamba_apply", "mamba_decode", "mamba_cache_init",
            "associative_scan"]
@@ -59,7 +66,10 @@ def _causal_conv(x, w, b):
     """Depthwise causal conv: x [B, S, dI], w [dI, K].  A bf16 x against
     float32 weights promotes to float32, as in the reference."""
     k = w.shape[1]
-    pad = F.pad(x, (0, 0, k - 1, 0))
+    # k - 1 zero positions in front (a cat, not F.pad: on a DTensor cut
+    # over dI, F.pad's redistribute fails in some torch versions)
+    pad = torch.cat([torch.zeros_like(x[:, :1]).expand(-1, k - 1, -1), x],
+                    dim=1)
     out = torch.zeros_like(x)
     for i in range(k):
         out = out + pad[:, i:i + x.shape[1], :] * w[:, i]
@@ -119,7 +129,7 @@ def _scan_chunk(h, xc, dc, bc, cc, A):
     a_sc, b_sc = associative_scan(a, bx)
     hs = b_sc + a_sc * h[:, None]
     y = torch.einsum("bcdn,bcn->bcd", hs, cc.float())
-    return hs[:, -1], y
+    return constrain(hs[:, -1], ("batch", "model", None)), y
 
 
 def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False,
@@ -145,10 +155,10 @@ def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False,
 
     # chunk inputs staged in bf16 as the reference stores them; the
     # recurrence math upcasts to float32
-    x1h = x1.to(torch.bfloat16)
-    dh = delta.to(torch.bfloat16)
-    bh = b_ssm.to(torch.bfloat16)
-    ch = c_ssm.to(torch.bfloat16)
+    x1h = x1.to(STAGE_DTYPE)
+    dh = delta.to(STAGE_DTYPE)
+    bh = b_ssm.to(STAGE_DTYPE)
+    ch = c_ssm.to(STAGE_DTYPE)
     c = min(chunk, s)
     ys = []
     if impl == "reference":

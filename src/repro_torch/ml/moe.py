@@ -1,6 +1,6 @@
 """Mixture-of-Experts layer (GShard-style dense dispatch).
 
-The port of ``repro/ml/moe.py`` on one device: top-k routing with
+The port of ``repro/ml/moe.py``: top-k routing with
 capacity, [G, S, E, C] dispatch/combine tensors in the compute dtype
 built from cumulative-position one-hots, and the expert FFNs as batched
 einsums (left to PyTorch, as the reference leaves them to XLA).  The
@@ -9,6 +9,10 @@ shrinks until it divides the token count, ``argmax`` takes the first
 maximum, positions are cumulative sums in float32, ``combine`` is built
 in the compute dtype, and a gate that rounds to 0 there is not
 dispatched (``dispatch = combine > 0``).
+
+On a mesh the expert-parallel layout is pinned as the reference pins it
+(``ml.sharding.constrain``): experts over ``model`` when E divides it,
+else the feature dim; dispatch and combine E-sharded under EP.
 
 Capacity C = max(k, f·S·k/E) per group.  Aux losses: load-balance
 (Switch) + router z-loss.
@@ -21,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import dense_init, gelu, silu
+from .sharding import active_mesh, constrain, mesh_sizes
 
 __all__ = ["moe_init", "moe_apply"]
 
@@ -75,12 +80,34 @@ def moe_apply(x, p, *, top_k: int, capacity_factor: float = 1.25,
         gk = gk * (1.0 - onehot)
 
     dispatch = (combine > 0).to(cdt)
-    ex_in = torch.einsum("gsec,gsd->gecd", dispatch, tok.to(cdt))
+
+    # pin expert parallelism: groups over data; experts over model when E
+    # divides it (EP), else the feature dim shards (TP experts)
+    mesh = active_mesh()
+    n_model = mesh_sizes(mesh).get("model", 1) if mesh is not None else 1
+    ep = e % n_model == 0 and e >= n_model
+
+    def pin(t):                        # [G, E, C, D|F]
+        return constrain(t, ("batch", "model", None, None) if ep
+                         else ("batch", None, None, "model"))
+
+    def pin_sc(t):                     # [G, S, E, C]
+        return constrain(t, ("batch", None, "model", None) if ep
+                         else ("batch", None, None, None))
+
+    dispatch = pin_sc(dispatch)
+    combine = pin_sc(combine)
+    ex_in = pin(torch.einsum("gsec,gsd->gecd", dispatch, tok.to(cdt)))
     we = p["experts"]
     h = act_fn(torch.einsum("gecd,edf->gecf", ex_in, we["w_gate"].to(cdt)))
-    h = h * torch.einsum("gecd,edf->gecf", ex_in, we["w_up"].to(cdt))
-    ex_out = torch.einsum("gecf,efd->gecd", h, we["w_down"].to(cdt))
-    out = torch.einsum("gsec,gecd->gsd", combine, ex_out)
+    h = pin(h * torch.einsum("gecd,edf->gecf", ex_in, we["w_up"].to(cdt)))
+    ex_out = pin(torch.einsum("gecf,efd->gecd", h, we["w_down"].to(cdt)))
+    # the combine contracts the experts: gathered first, so that the
+    # product flattens no dim cut over model (DTensor refuses that view in
+    # some torch versions)
+    unpin = ("batch", None, None, None)
+    out = torch.einsum("gsec,gecd->gsd", constrain(combine, unpin),
+                       constrain(ex_out, unpin))
 
     me = gates.mean(dim=1)                                      # [G, E]
     ce = dispatch.float().sum(dim=(1, 3)) / sg                  # [G, E]

@@ -40,6 +40,15 @@ output (selective checkpointing of ``aten.mm``/``bmm``, the reference's
 ``dots_saveable``).  The reference also checkpoints each layer group
 around its blocks; the port checkpoints the blocks only.  Gradients do
 not change with ``remat``.
+
+``mesh`` (a ``DeviceMesh`` with ``data``/``model`` dims, as
+``ml.model.ModelBundle`` passes it) runs the same code on DTensor
+parameters and batches: with ``seq_parallel`` the activations between
+block groups shard [batch → (pod, data), seq → model] (the reference's
+``_seq_constraint``; whole again at each block's entry and before the
+head), and ``gather``, when the bundle sets it (FSDP),
+brings each block's parameters to their model-axis placements inside
+the block's checkpoint — the per-layer gather.
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ from .layers import (dense_init, embed_init, layer_norm, mlp_apply,
                      mlp_init, norm_init, rms_norm)
 from .moe import moe_apply, moe_init
 from .params import act_dtype, cast_params, tree_map
+from .sharding import constrain, is_dtensor, mesh_sizes, place_caches
 
 __all__ = ["LM", "cycle_len"]
 
@@ -105,6 +115,20 @@ def _index(tree, g: int):
     if isinstance(tree, dict):
         return {k: _index(v, g) for k, v in tree.items()}
     return tree[g]
+
+
+def _rows(table, ids):
+    """``table[ids]``.  A DTensor table is gathered whole along its rows
+    (the vocab's model-axis cut) and looked up with ``F.embedding``: the
+    backward of an index into a DTensor (``index_put``) and the
+    vocab-parallel lookup's masked partial sum have no sharding rules
+    that hold in every torch version."""
+    if not is_dtensor(table):
+        return table[ids.long()]
+    from torch.distributed.tensor import Replicate
+    whole = table.redistribute(table.device_mesh, [
+        Replicate() if p.is_shard(0) else p for p in table.placements])
+    return torch.nn.functional.embedding(ids.long(), whole)
 
 
 def _stack(trees):
@@ -293,7 +317,7 @@ def _block_decode(cfg: ArchConfig, slot: int, x, p, cache, pos: int):
 
 class LM:
     def __init__(self, cfg: ArchConfig, *, impl: str = "kernel",
-                 remat: str = "none"):
+                 remat: str = "none", mesh=None, seq_parallel: bool = True):
         kinds = set(cfg.block_pattern)
         if not kinds <= set(KINDS):
             raise ValueError(f"{cfg.name}: unknown block kinds "
@@ -305,6 +329,11 @@ class LM:
         self.cfg = cfg
         self.impl = impl
         self.remat = remat
+        self.mesh = mesh            # enables the sequence-parallel pin
+        self.seq_parallel = seq_parallel
+        #: ``gather(path, tree)`` → the tree at its use placements (FSDP's
+        #: per-layer gather); None leaves parameters as stored
+        self.gather = None
         self.cyc = cycle_len(cfg)
         if cfg.num_layers % self.cyc:
             raise ValueError(f"{cfg.name}: layers {cfg.num_layers} not "
@@ -347,17 +376,42 @@ class LM:
         return _cast(cfg, p, dtype)
 
     # --------------------------------------------------------- helpers
+    def _use(self, path, tree):
+        """A parameter (sub)tree where it is used: gathered by
+        :attr:`gather` when the bundle set one (FSDP), else as stored."""
+        return tree if self.gather is None else self.gather(path, tree)
+
     def _embed(self, p, tokens, positions):
         cfg = self.cfg
         adt = act_dtype(cfg)
-        x = p["embed"][tokens.long()].to(adt)
+        x = _rows(self._use(("embed",), p["embed"]), tokens).to(adt)
         if cfg.pos == "learned":
             pos = positions if positions.dim() == 2 else positions[0]
-            x = x + p["pos_embed"][pos.long()].to(adt)
+            x = x + _rows(self._use(("pos_embed",), p["pos_embed"]),
+                          pos).to(adt)
         return x
 
     def head(self, p):
-        return p["embed"].T if self.cfg.tie_embeddings else p["lm_head"]
+        if self.cfg.tie_embeddings:
+            return self._use(("embed",), p["embed"]).T
+        return self._use(("lm_head",), p["lm_head"])
+
+    def _seq_on(self) -> bool:
+        return self.mesh is not None and self.seq_parallel \
+            and "model" in mesh_sizes(self.mesh)
+
+    def _seq_constraint(self, x):
+        """Sequence-parallel activation pin between block groups: [batch →
+        (pod, data), seq → model], each axis only where it divides."""
+        return constrain(x, ("batch", "model", None)) if self._seq_on() \
+            else x
+
+    def _seq_gather(self, x):
+        """Activations with their sequence whole again (the all-gather
+        GSPMD puts before a product, Megatron's sequence parallelism): at
+        a block's entry inside its checkpoint, so that what the checkpoint
+        saves stays cut over ``model``, and before the LM head."""
+        return constrain(x, ("batch", None, None)) if self._seq_on() else x
 
     def _logits(self, p, x):
         """Float32 logits of x against the head rounded to x's dtype (the
@@ -378,8 +432,10 @@ class LM:
         """One block of the training forward, under ``remat``'s
         checkpoint → (x, load-balance loss, router z-loss)."""
         def one(x):
-            y, aux, _ = _block_apply(self.cfg, sl, x, gp, positions,
-                                     enc_out=enc_out, impl=self.impl)
+            y, aux, _ = _block_apply(self.cfg, sl, self._seq_gather(x),
+                                     self._use(("blocks", f"slot{sl}"), gp),
+                                     positions, enc_out=enc_out,
+                                     impl=self.impl)
             return y, aux["load_balance"], aux["router_z"]
 
         if self.remat == "none":
@@ -408,8 +464,11 @@ class LM:
                                           positions, enc_out)
                 lb = lb + lb_
                 rz = rz + rz_
-        x = _norm(cfg)(x, p["final_norm"], cfg.norm_eps)
-        return x, {"load_balance": lb, "router_z": rz}
+            x = self._seq_constraint(x)
+        x = _norm(cfg)(x, self._use(("final_norm",), p["final_norm"]),
+                       cfg.norm_eps)
+        # the head's product takes whole sequences, as each block's does
+        return self._seq_gather(x), {"load_balance": lb, "router_z": rz}
 
     def apply(self, p, tokens, positions=None, frames=None):
         """Forward → (logits [B,S,V] float32, aux dict)."""
@@ -423,15 +482,18 @@ class LM:
         encoder layers (non-causal), ``enc_norm``."""
         cfg = self.cfg
         adt = act_dtype(cfg)
-        x = frames.to(adt) @ p["enc_in"].to(adt)
+        x = frames.to(adt) @ self._use(("enc_in",), p["enc_in"]).to(adt)
         b, s, _ = x.shape
         positions = _positions_for(cfg, b, s, device=x.device)
         if cfg.pos == "learned":
-            x = x + p["pos_embed"][:s].to(torch.bfloat16)
+            x = x + self._use(("pos_embed",),
+                              p["pos_embed"])[:s].to(torch.bfloat16)
         for e in range(cfg.encoder_layers):
-            x, _, _ = _block_apply(cfg, 0, x, _index(p["enc_blocks"], e),
-                                   positions, impl=self.impl, decoder=False)
-        return _norm(cfg)(x, p["enc_norm"], cfg.norm_eps)
+            blk = self._use(("enc_blocks",), _index(p["enc_blocks"], e))
+            x, _, _ = _block_apply(cfg, 0, x, blk, positions,
+                                   impl=self.impl, decoder=False)
+        return _norm(cfg)(x, self._use(("enc_norm",), p["enc_norm"]),
+                          cfg.norm_eps)
 
     # ---------------------------------------------------------- serving
     def init_caches(self, batch: int, max_len: int, device="cuda",
@@ -439,7 +501,8 @@ class LM:
         """Stacked per-slot caches [G, ...] on ``device`` (the card unless
         the caller asks for the CPU, as :meth:`init`); an encoder-decoder
         config's attention slots also hold cross K/V for ``enc_len``
-        encoder positions (``max_len`` if not given)."""
+        encoder positions (``max_len`` if not given).  On a mesh they are
+        DTensors laid out by ``ml.sharding.cache_spec_leaf``."""
         cfg = self.cfg
         g = self.groups
         caches = {}
@@ -473,6 +536,8 @@ class LM:
                 c = {k: torch.zeros((g, batch, cfg.d_model), device=device)
                      for k in ("c", "n", "h", "m")}
             caches[f"slot{s}"] = c
+        if self.mesh is not None:
+            return place_caches(caches, self.mesh)
         return caches
 
     def decode_step(self, p, tokens, caches, pos: int):

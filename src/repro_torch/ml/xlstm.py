@@ -20,8 +20,10 @@ checkpointed step).  The four input projections are one product each over
 the whole sequence, in float32.  A gated pf=4/3 MLP follows.
 
 The reference's ``REPRO_SSM_CHUNK`` is ``mlstm_apply``'s ``chunk``
-argument here (256 by default), as in ``ml/mamba.py``; its sharding hints
-(``constrain``) have no counterpart on one device.
+argument here (256 by default), as in ``ml/mamba.py``.  On a mesh the
+mLSTM carry (C, n) is pinned after each chunk, as the reference pins it
+(``ml.sharding.constrain``: batch over the batch axes, the value dim over
+``model``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .layers import dense_init, silu
+from .sharding import constrain
 
 __all__ = ["mlstm_init", "mlstm_apply", "mlstm_decode", "mlstm_cache_init",
            "slstm_init", "slstm_apply", "slstm_decode", "slstm_cache_init"]
@@ -133,6 +136,9 @@ def _mlstm_chunk(C, n, qq, kk, vv, lf, li):
     C_new = f_end[..., None, None] * C + torch.einsum("bhsd,bhse->bhde",
                                                       ki, vv)
     n_new = f_end[..., None] * n + ki.sum(dim=2)
+    # pin the carry: batch over the batch axes, the value dim over model
+    C_new = constrain(C_new, ("batch", None, None, "model"))
+    n_new = constrain(n_new, ("batch", None, "model"))
     return C_new, n_new, h
 
 

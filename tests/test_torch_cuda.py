@@ -1550,3 +1550,105 @@ def test_wrappers_refuse_tensors_of_two_cards(cards):
     assert str(a) in str(err.value) and str(b) in str(err.value)
     torch.cuda.synchronize()
     assert _build.kernel_launches() == {}
+
+
+# ------------------------------------------------ the ML meshes on the cards
+#
+# ``tests/_torch_mesh_worker.py`` on NCCL, one process a card (four on a
+# host with four, else two): two reduced-Qwen train steps on each mesh
+# against the one-device step on the rank's card, ``compressed_psum``
+# over the ranks and over the data dim, and a train state saved on the
+# mesh with a model axis restored onto data only.  The bounds are
+# ``tests/test_torch_mesh.py``'s (phase 3g's).
+
+MESH_LOSS_RTOL, MESH_GNORM_RTOL, MESH_GRAD_REL = 1e-4, 1e-3, 2.0 ** -8
+MESH_PARAM_ATOL, MESH_PSUM_RTOL = 1e-5, 1e-6
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"needs two CUDA devices or more, {n} visible: a "
+                    "device mesh")
+    world = 4 if n >= 4 else 2
+    tmp = tmp_path_factory.mktemp("mesh_cuda")
+    worker = Path(__file__).resolve().parent / "_torch_mesh_worker.py"
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), str(r), str(world),
+         str(tmp / "rendezvous"), str(tmp), "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + 600
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        logs = [p.communicate()[0] for p in procs]
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        pytest.fail(f"mesh ranks exited {codes}:\n" + "\n".join(
+            f"--- rank {r}\n{log[-3000:]}" for r, log in enumerate(logs)))
+    with open(tmp / "results.json") as fh:
+        return world, json.load(fh)
+
+
+def test_mesh_steps_on_the_cards(mesh_ranks):
+    world, res = mesh_ranks
+    want = ({"data4", "2x2", "zero1", "fsdp", "fsdp_2x2",
+             "seq_parallel_off", "compress_grads"} if world == 4
+            else {"data2", "model2"})
+    assert set(res["steps"]) == want
+    for name, row in res["steps"].items():
+        for a, b in zip(row["mesh"], row["one"]):
+            assert abs(a["loss"] - b["loss"]) <= \
+                MESH_LOSS_RTOL * abs(b["loss"]), name
+            assert abs(a["grad_norm"] - b["grad_norm"]) <= \
+                MESH_GNORM_RTOL * b["grad_norm"], name
+        assert row["grad_max_rel"] <= MESH_GRAD_REL, name
+        assert row["signal_params"] > 0, name
+        assert row["signal_max_abs"] <= MESH_PARAM_ATOL, name
+        assert row["last_param_max_abs"] <= row["reach"], name
+        assert row["params_placed"], name
+
+
+def test_mesh_compressed_psum_on_nccl(mesh_ranks):
+    """The int8 mean over NCCL equals the numpy mean of the ranks'
+    dequantized payloads (per-tensor scale max|x|/127, round half to
+    even, clip ±127)."""
+    world, res = mesh_ranks
+    for name, row in res["psum"].items():
+        assert row["ranks"] == (list(range(world)) if name == "world"
+                                else [0, 2] if world == 4 else [0, 1])
+        deq = []
+        for r in row["ranks"]:
+            x = np.random.default_rng(100 + r).normal(size=(8, 16)) \
+                .astype(np.float32)
+            scale = np.maximum(np.abs(x).max(), np.float32(1e-12)) \
+                / np.float32(127.0)
+            q = np.clip(np.round(x / scale), -127, 127)
+            deq.append(q.astype(np.float32) * scale)
+        want = np.mean(np.stack(deq), axis=0, dtype=np.float32)
+        np.testing.assert_allclose(np.asarray(row["got"], np.float32), want,
+                                   rtol=MESH_PSUM_RTOL,
+                                   atol=MESH_PSUM_RTOL * np.abs(want).max())
+
+
+def test_mesh_elastic_restore_across_cards(mesh_ranks):
+    _, res = mesh_ranks
+    row = res["elastic"]
+    assert row["bit_equal"] and row["function_bit_equal"]
+    assert row["params_placed"] and row["moments_placed"]
+    assert row["step"] == 3

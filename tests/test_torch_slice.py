@@ -278,7 +278,9 @@ res = sess.run(fdb("Trips").tesseract(t).aggregate(
 import numpy as np
 import repro_torch.configs, repro_torch.ml.attention, repro_torch.ml.layers
 import repro_torch.ml.mamba, repro_torch.ml.moe, repro_torch.ml.params
-import repro_torch.ml.transformer
+import repro_torch.ml.transformer, repro_torch.ml.sharding
+import repro_torch.ml.model, repro_torch.launch.train
+import repro_torch.launch.mesh, repro_torch.launch.elastic
 from repro_torch.configs import get_config
 from repro_torch.launch.serve import Server
 srv = Server(get_config("jamba_v0_1_52b"), device="cpu")
@@ -301,4 +303,6 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.launch.serve", "repro_torch.ml.mamba",
             "repro_torch.ml.moe", "repro_torch.configs.jamba_v0_1_52b",
             "repro_torch.kernels.flash_attention",
-            "repro_torch.kernels.ssm_scan"} <= set(mods)
+            "repro_torch.kernels.ssm_scan", "repro_torch.ml.sharding",
+            "repro_torch.launch.train", "repro_torch.launch.elastic"} \
+        <= set(mods)

@@ -253,9 +253,23 @@ def test_ef_compression_matches_reference_and_feeds_back():
     assert resid < 3 * np.abs(g0).max() / 127.0
 
 
-def test_compressed_psum_names_its_queue_item():
-    with pytest.raises(NotImplementedError, match="A12"):
-        TO.compressed_psum(torch.zeros(4), "data")
+def test_compressed_psum_names_its_queue_item(tmp_path):
+    """``compressed_psum`` runs on a process group (the ML meshes, queue
+    item A12a, once named by the error it raised): over one gloo rank it
+    is the reference's ``shard_map`` result over a one-device axis, the
+    dequantized int8 payload, bit for bit.  Four ranks are
+    ``tests/test_torch_mesh.py``'s."""
+    import torch.distributed as dist
+    x = np.random.default_rng(0).normal(size=(8,)).astype(np.float32)
+    q, scale = JO._quant_int8(jnp.asarray(x))
+    want = np.asarray(q, np.float32) * np.float32(scale)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        got = TO.compressed_psum(torch.from_numpy(x), dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # --------------------------------------------------------------- attention
