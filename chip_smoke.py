@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one card
-(phases 3h and 3i on every visible card, with two or more).
+(phases 3h, 3i and 3j on every visible card, with two or more).
 
     python3 chip_smoke.py
 
@@ -126,6 +126,39 @@ around it: it imports nothing of the JAX package.  Phases:
    the one-device step, peak bytes a card, each card's busy share and the
    share of its device time in NCCL kernels (``torch.profiler``, one more
    step), and the seconds the phase took;
+3j. mesh serve (with two CUDA devices or more; with one it prints a line
+   saying it did not run): serving through the kernels on a mesh,
+   ``ModelBundle(cfg, mesh, impl="kernel")``'s ``make_prefill`` and
+   ``make_decode_step``, one worker process a card as in 3i (this script
+   with ``--mesh-serve-worker``).  Rows on four cards, bf16 at full width:
+   SmolLM-360M on 1 × 4 (15/5 heads: every card gathers the heads and
+   runs row 9 over all of them), Whisper large-v3 on 1 × 4 (5 heads a
+   card; row 9 non-causal over the 1,500 encoder positions and as cross
+   attention), Jamba-v0.1 cut to 8 of 32 layers on 1 × 4 and 2 × 2 (8 q
+   and 2 KV heads, 4 experts and 2,048 Mamba channels a card at 1 × 4),
+   and Jamba-v0.1 at full depth (32 layers, 52B params, ~26 GB a card) on
+   1 × 4; on two cards the first three on 1 × 2.  Each row serves phase
+   3e's traffic (8 requests of 64-512 tokens in two left-padded batches
+   of 4, [4, 445] and [4, 202]; Whisper: frames [4, 1500, 1280] and 4
+   prompts [4, 191]): a prefill and 15 greedy decode steps a batch, every
+   card's row 9 / row 10 launches equal to the layers' count
+   (``_build.kernel_launches(device=)``), the caches placed as
+   ``cache_shardings`` says, each card's local parameter bytes equal to
+   the specs' (``launch.elastic.per_device_bytes``).  Card 0 first runs
+   the one-card prefills of the rows it holds alone and frees them; each
+   such row is held to them: the bf16 prefill of the first batch within
+   LM_CHECK_REL of the largest |logit| (or twice card 0's own bf16 noise,
+   MESH_F32_REL's comment), the float32 one (dropless MoE, LM_CHECK_SHAPE,
+   the bf16 weights cast) within MESH_F32_REL and argmax equal.  The full-depth
+   Jamba is built without any rank holding it (4 one-cycle inits, seeds
+   0-3, cut locally by the 32-layer tree's specs and stacked along the
+   group dim) and held by the prefill↔decode consistency of phase 3e on
+   the mesh in float32 (the served bf16 weights cast on the cards, ~52 GB
+   a card).
+   ``mesh_serve`` lines: cold and warm prefill ms, decode ms a step,
+   tokens/s, peak and parameter bytes a card, launches a card, busy, idle
+   and NCCL share a card over a prefill and 3 decode steps, the checks'
+   errors and bounds, the card line;
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the largest shape the main path gave it (both segment_agg branches —
    the shared one must give the same bits from two calls, and the library
@@ -177,7 +210,8 @@ launch paths compared in one call, one process each).
 
     python3 chip_smoke.py --mesh-only
 
-runs phase 1's card line and phase 3i alone (two cards or more).
+runs phase 1's card line and phases 3i and 3j alone (two cards or
+more).
 
 Tolerances: selections, ids, counts and integer tables are exact.  A
 kernel's float64 sums may differ from the plain version's only by
@@ -765,6 +799,16 @@ def main(require_cards: int = 1) -> int:
               "a device mesh needs two or more (python3 chip_smoke.py "
               "--require-cards 4 on a host with four)")
     phase_done("3i mesh")
+
+    # ------------------------------------------------------- 3j. mesh serve
+    if n_cards > 1:
+        mesh_serve_phase(torch, n_cards)
+    else:
+        print("mesh_serve: phase 3j did not run: one CUDA device is "
+              "visible, and serving on a device mesh needs two or more "
+              "(python3 chip_smoke.py --require-cards 4 on a host with "
+              "four)")
+    phase_done("3j mesh serve")
     for mod, name in wrappers:
         setattr(mod, name, originals[name])
 
@@ -2077,11 +2121,8 @@ def _lm_consistency(torch, np, cname, cfg, rng, frames=None):
     """Prefill (kernels) vs decode (plain) in float32 with dropless MoE:
     the decode logits at position S-1 after a prefill of S-1 tokens
     against the prefill's over S, on a fresh float32 model."""
-    from dataclasses import replace
     from repro_torch.ml.transformer import LM
-    cfg32 = replace(cfg, act_dtype="float32")
-    if cfg.moe_experts:
-        cfg32 = replace(cfg32, moe_capacity_factor=float(cfg.moe_experts))
+    cfg32 = _f32_cfg(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lm = LM(cfg32)
@@ -3260,14 +3301,15 @@ def mesh_worker_main(out_dir: str) -> int:
     return 0
 
 
-def mesh_phase(torch, n_cards: int) -> None:
-    """Phase 3i: the ML meshes (module docstring).  Starts one worker a
-    card with ``torch.distributed.run`` and checks what rank 0 wrote; a
-    worker that fails fails the phase."""
+def _run_mesh_workers(torch, n_cards: int, flag: str, result: str,
+                      timeout: int, what: str):
+    """Start one worker a card (four, else two) with
+    ``torch.distributed.run`` running this script with ``flag``, and
+    return what rank 0 wrote to ``result``; a worker that fails fails the
+    phase (what rank 0 wrote so far is printed first)."""
     import os
     import shutil
     import tempfile
-    t0 = time.perf_counter()
     torch.cuda.empty_cache()        # card 0 is also rank 0's
     nproc = 4 if n_cards >= 4 else 2
     out = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
@@ -3277,19 +3319,25 @@ def mesh_phase(torch, n_cards: int) -> None:
     try:
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             f"--nproc-per-node={nproc}", str(here), "--mesh-worker", out],
-            env=env, capture_output=True, text=True,
-            timeout=MESH_TIMEOUT_S)
+             f"--nproc-per-node={nproc}", str(here), flag, out],
+            env=env, capture_output=True, text=True, timeout=timeout)
         if proc.returncode != 0:
-            if os.path.exists(os.path.join(out, "mesh.json")):
-                with open(os.path.join(out, "mesh.json")) as fh:
-                    print("mesh partial " + fh.read())
-            fail(f"mesh: the workers exited {proc.returncode}:\n"
+            if os.path.exists(os.path.join(out, result)):
+                with open(os.path.join(out, result)) as fh:
+                    print(f"{what.replace(' ', '_')} partial " + fh.read())
+            fail(f"{what}: the workers exited {proc.returncode}:\n"
                  f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
-        with open(os.path.join(out, "mesh.json")) as fh:
-            res = json.load(fh)
+        with open(os.path.join(out, result)) as fh:
+            return json.load(fh)
     finally:
         shutil.rmtree(out, ignore_errors=True)
+
+
+def mesh_phase(torch, n_cards: int) -> None:
+    """Phase 3i: the ML meshes (module docstring)."""
+    t0 = time.perf_counter()
+    res = _run_mesh_workers(torch, n_cards, "--mesh-worker", "mesh.json",
+                            MESH_TIMEOUT_S, "mesh")
     mesh_report(res, t0)
 
 
@@ -3363,6 +3411,460 @@ def mesh_report(res, t0) -> None:
                                 "kernel_launches": res["launches"]}))
 
 
+# ------------------------------------------------------- 3j. mesh serve
+#: phase 3j: (row, arch, mesh shape (data, model), layers — None for the
+#: config's own — and whether card 0 holds it alone, for the comparison)
+MESH_SERVE_4 = [
+    ("smollm_360m", "smollm_360m", (1, 4), None, True),
+    ("whisper_large_v3", "whisper_large_v3", (1, 4), None, True),
+    ("jamba_v0_1_52b[8 of 32 layers]", "jamba_v0_1_52b", (1, 4), 8, True),
+    ("jamba_v0_1_52b[8 of 32 layers]", "jamba_v0_1_52b", (2, 2), 8, True),
+    # the headline: 52B, ~104 GB in bf16, on no card alone
+    ("jamba_v0_1_52b", "jamba_v0_1_52b", (1, 4), None, False)]
+MESH_SERVE_2 = [(n, a, (1, 2), layers, one)
+                for n, a, _, layers, one in MESH_SERVE_4[:3]]
+#: a mesh row's float32 prefill (dropless MoE, LM_CHECK_SHAPE) against card
+#: 0's, the same weights: max |Δ logit| over the largest |logit|.  Its bf16
+#: prefill of the first batch is held at LM_CHECK_REL, or at twice card 0's
+#: own bf16 noise where that is larger (its bf16 prefill against the same
+#: weights in float32, as tests/test_torch_lm.py holds bf16 against the
+#: reference): the mesh sums its row-parallel products in bf16 across the
+#: cards, and a rounding can move a token to another expert
+MESH_F32_REL = 1e-3
+#: decode steps in the profiled window (after the prefill)
+MESH_PROFILE_STEPS = 3
+MESH_SERVE_TIMEOUT_S = 600
+
+
+def _serve_card(torch):
+    """The device of this rank's pieces: its card."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _serve_cfg(arch, layers):
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return replace(cfg, num_layers=layers) if layers else cfg
+
+
+def _f32_cfg(cfg):
+    """Float32 activations (and weights) with dropless MoE, as the
+    consistency checks run."""
+    from dataclasses import replace
+    out = replace(cfg, act_dtype="float32")
+    if cfg.moe_experts:
+        out = replace(out, moe_capacity_factor=float(cfg.moe_experts))
+    return out
+
+
+def _serve_traffic(torch, np, cfg, dev):
+    """Phase 3e's traffic for ``cfg`` on ``dev``: the left-padded token
+    batches of 4 (8 requests of 64-512 tokens: [4, 445] and [4, 202]; or
+    Whisper's 4 prompts of 4-224 tokens) and Whisper's frames (else
+    None), from the seeds phase 3e uses; and the float32 check's tokens
+    (LM_CHECK_SHAPE) and frames."""
+    rng = np.random.default_rng(0)
+    frames = None
+    if cfg.encoder_layers:
+        b, se = WHISPER_FRAMES
+        gen = torch.Generator(device=dev).manual_seed(0)
+        frames = torch.randn((b, se, cfg.d_model), generator=gen,
+                             device=dev).to(torch.bfloat16)
+        lens = rng.integers(WHISPER_PROMPT_LENS[0],
+                            WHISPER_PROMPT_LENS[1] + 1, b)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
+    else:
+        lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1,
+                            LM_REQUESTS)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in lens]
+    batches = [torch.from_numpy(_pad_left(np, prompts[i:i + LM_MAX_BATCH]))
+               .to(dev) for i in range(0, len(prompts), LM_MAX_BATCH)]
+    check = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, LM_CHECK_SHAPE).astype(np.int32)).to(dev)
+    check_kw = {} if frames is None else \
+        {"frames": frames[:LM_CHECK_SHAPE[0]]}
+    return batches, frames, check, check_kw
+
+
+def _to_dtype(tree, dtype):
+    """Every leaf of ``tree`` cast to ``dtype`` in place, one at a time
+    (each old leaf freed before the next is cast)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_dtype(v, dtype)
+        else:
+            tree[k] = v.to(dtype)
+    return tree
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _serve_refs(torch, np, rows, dev):
+    """Card 0's one-card prefills of each row's configuration that one
+    card holds, logits on the host: the bf16 prefill of the first batch;
+    then the same weights cast to float32 (as the mesh's float32 check
+    casts them), through the dropless float32 configuration
+    (:func:`_f32_cfg`) at LM_CHECK_SHAPE and through the served
+    configuration in float32 activations on the first batch — the bf16
+    prefill's own distance from the latter is its noise floor.  Every
+    model is freed before the next."""
+    from dataclasses import replace
+    from repro_torch.ml.transformer import LM
+    refs = {}
+    for name, arch, _, layers, one_card in rows:
+        if not one_card or name in refs:
+            continue
+        cfg = _serve_cfg(arch, layers)
+        batches, frames, check, check_kw = _serve_traffic(torch, np, cfg,
+                                                          dev)
+        kw = {} if frames is None else {"frames": frames}
+        torch.cuda.reset_peak_memory_stats()
+        params = LM(cfg).init(0, dev)
+        with torch.no_grad():
+            bf16 = LM(cfg).prefill(params, batches[0], **kw)[0].float().cpu()
+            _to_dtype(params, torch.float32)
+            f32 = LM(_f32_cfg(cfg)).prefill(params, check,
+                                            **check_kw)[0].cpu()
+            same = LM(replace(cfg, act_dtype="float32")).prefill(
+                params, batches[0], **kw)[0].cpu()
+        del params
+        torch.cuda.empty_cache()
+        refs[name] = {"bf16": bf16, "f32": f32,
+                      "bf16_noise": _rel(bf16, same),
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+    return refs
+
+
+def _local_params(torch, mb, specs, dev, inits):
+    """``mb``'s parameters without the whole tree on any rank at once:
+    each ``(lm, seed)`` of ``inits`` initialised in turn, each leaf cut
+    locally by ``specs`` (``mb.param_specs()``; no collective: every rank
+    made the same numbers) and freed as it is cut; the inits' block
+    pieces stacked along the group dim, which no rule cuts, into DTensors
+    (``DTensor.from_local``).  The leaves outside the blocks (embedding,
+    head, final norm) come from the first init."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from repro_torch.ml import sharding as sh
+    mesh = mb.mesh
+    specs = {path: sh.placements(spec, mesh)
+             for path, spec in sh.leaf_items(specs)}
+    pieces, tree = {}, {}
+
+    def cut(path, t):
+        """This rank's piece of ``t``, a copy (a piece may be a view that
+        would keep the whole init alive)."""
+        return distribute_tensor(t, mesh, specs[path],
+                                 src_data_rank=None).to_local().clone()
+
+    for i, (lm, seed) in enumerate(inits):
+        init = lm.init(seed, dev)
+        for path, _ in list(sh.leaf_items(init)):
+            node = init
+            for k in path[:-1]:
+                node = node[k]
+            t = node.pop(path[-1])
+            if path[0] == "blocks":
+                if any(p.is_shard(0) for p in specs[path]):
+                    fail(f"mesh serve: {path} is cut along its group dim")
+                pieces.setdefault(path, []).append(cut(path, t))
+            elif i == 0:
+                tree[path] = DTensor.from_local(cut(path, t), mesh,
+                                                specs[path], run_check=False)
+            del t
+        del init
+        torch.cuda.empty_cache()
+    for path, parts in pieces.items():     # the rules cut evenly
+        tree[path] = DTensor.from_local(torch.cat(parts, dim=0), mesh,
+                                        specs[path], run_check=False)
+        parts.clear()
+    out: dict = {}
+    for path in specs:          # the tree's own order
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = tree[path]
+    return out
+
+
+def _serve_params(torch, mb, cfg, dev, one_card, specs):
+    """``mb``'s bf16 parameters on the mesh: for a row card 0 holds alone
+    the whole init on each card, then ``shard_params``; for the full
+    depth, which no card holds, one block cycle's init a group (seeds 0,
+    1, …) cut locally (:func:`_local_params`)."""
+    from dataclasses import replace
+    from repro_torch.ml.transformer import LM, cycle_len
+    if one_card:
+        params = mb.shard_params(LM(cfg).init(0, dev))
+        torch.cuda.empty_cache()
+        return params
+    cycle = LM(replace(cfg, num_layers=cycle_len(cfg)))
+    return _local_params(torch, mb, specs, dev,
+                         [(cycle, seed) for seed in range(mb.lm.groups)])
+
+
+def _generate(torch, mb, params, toks, frames, steps=LM_MAX_NEW - 1):
+    """One prefill of ``toks`` and ``steps`` greedy decode steps through
+    ``mb``'s steps → (tokens [B, steps + 1] on the host, prefill ms,
+    decode ms a step, the prefill's logits and its caches)."""
+    from repro_torch.ml.model import _full
+    batch = {"tokens": toks}
+    if frames is not None:
+        batch["frames"] = frames
+    prefill, step = mb.make_prefill(), mb.make_decode_step()
+    s = toks.shape[1]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, mb.shard_batch(batch))
+        cur = torch.argmax(_full(logits), dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [cur.cpu()]
+        first = caches
+        for t in range(steps):
+            nxt, caches = step(params, caches, mb.shard_batch(
+                {"tokens": cur})["tokens"], s + t)
+            cur = _full(nxt)
+            out.append(cur.cpu())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (torch.cat(out, dim=1), (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3 / max(steps, 1), logits, first)
+
+
+def _mesh_serve_row(torch, np, dist, row, mesh, dev, ref):
+    """One row of phase 3j on ``mesh``: the traffic through
+    ``ModelBundle(cfg, mesh, impl="kernel")`` (counted launches on this
+    card, cold and warm times, a profiled window), the caches' and
+    parameters' placements and bytes, and the checks: against card 0's
+    prefills (``ref``, rank 0) or, for a row no card holds alone,
+    prefill↔decode consistency on the mesh in float32."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.elastic import per_device_bytes
+    from repro_torch.ml import sharding as sh
+    from repro_torch.ml.model import ModelBundle, _full
+    from repro_torch.ml.optim import tree_leaves
+    from torch.distributed.tensor.experimental import implicit_replication
+    name, arch, shape, layers, one_card = row
+    lead = dist.get_rank() == 0
+    cfg = _serve_cfg(arch, layers)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_row = time.perf_counter()
+    mb = ModelBundle(cfg, mesh, impl="kernel")
+    specs = mb.param_specs()
+    dist.barrier()
+    t0 = time.perf_counter()
+    params = _serve_params(torch, mb, cfg, dev, one_card, specs)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = {"row": name, "mesh": list(shape), "layers": cfg.num_layers,
+           "attention_layers": kinds.count("attn"),
+           "mamba_layers": kinds.count("mamba"),
+           "encoder_layers": cfg.encoder_layers,
+           "one_card_reference": one_card, "init_s": init_s,
+           "params_placed": _placed_as(params, specs, mesh),
+           "want_param_bytes": per_device_bytes(params, specs, mesh)}
+    card = {"card": dev.index, "param_bytes": _local_bytes(params)}
+    batches, frames, check, check_kw = _serve_traffic(torch, np, cfg, dev)
+    b = batches[0].shape[0]
+    need = {"flash_attention": len(batches) * (
+                kinds.count("attn") * (2 if cfg.encoder_layers else 1)
+                + cfg.encoder_layers),
+            "ssm_scan": kinds.count("mamba") * sum(
+                math.ceil(t.shape[1] / LM_SSM_CHUNK) for t in batches)}
+    # the counted run: every batch's prefill and 15 greedy decode steps
+    _build.reset_kernel_launches()
+    dist.barrier()
+    t0 = time.perf_counter()
+    prefill_ms, decode_ms, tokens_ok = [], [], True
+    for i, toks in enumerate(batches):
+        got, pms, dms, logits, caches = _generate(torch, mb, params, toks,
+                                                  frames)
+        prefill_ms.append(pms)
+        decode_ms.append(dms)
+        tokens_ok = tokens_ok and got.shape == (b, LM_MAX_NEW) and bool(
+            ((got >= 0) & (got < cfg.vocab_size)).all())
+        if i == 0:
+            bf16 = _full(logits).float().cpu()
+            want = mb.cache_shardings(caches)
+            out["caches_placed"] = all(
+                leaf.placements == w[1] for leaf, (_, w) in
+                zip(tree_leaves(caches), sh.leaf_items(want)))
+        del logits, caches
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    card["launches"] = _build.kernel_launches(device=dev)
+    out.update(need=need, tokens_ok=tokens_ok, serve_ms=serve_ms,
+               serve_tokens_per_s=len(batches) * b * LM_MAX_NEW
+               / serve_ms * 1e3, prefill_ms=prefill_ms,
+               batches=[list(t.shape) for t in batches],
+               decode_ms_per_step=decode_ms)
+    # warm: the first batch again, then a profiled window
+    dist.barrier()
+    _, pms, dms, _, _ = _generate(torch, mb, params, batches[0], frames)
+    out.update(warm_prefill_ms=pms, warm_decode_ms_per_step=dms,
+               warm_tokens_per_s=b * LM_MAX_NEW
+               / (pms + (LM_MAX_NEW - 1) * dms) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    dist.barrier()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _generate(torch, mb, params, batches[0], frames,
+                  steps=MESH_PROFILE_STEPS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    card.update(profiled_ms=wall, **_nccl_busy(torch, prof, wall),
+                peak_bytes=torch.cuda.max_memory_allocated())
+    del prof
+    torch.cuda.empty_cache()
+    # the float32 check, on the same weights cast in place
+    torch.cuda.reset_peak_memory_stats()
+    _to_dtype(params, torch.float32)
+    mb32 = ModelBundle(_f32_cfg(cfg), mesh, impl="kernel")
+    prefill = mb32.make_prefill()
+    batch = {"tokens": check, **check_kw}
+    with torch.no_grad():
+        f32 = _full(prefill(params, mb32.shard_batch(batch))[0]).cpu()
+        if not one_card:    # decode at S-1 after a prefill of S-1 tokens
+            n = check.shape[1]
+            _, caches = prefill(params, mb32.shard_batch(
+                {"tokens": check[:, :-1], **check_kw}))
+            last = mb32.shard_batch({"tokens": check[:, -1:]})["tokens"]
+            with sh.using_mesh(mesh), implicit_replication():
+                got, _ = mb32.lm.decode_step(params, last, caches, n - 1)
+            got = _full(got).cpu()
+            del caches
+    card["f32_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    out["f32_weights"] = "the served bf16 weights cast to float32"
+    if lead and one_card:
+        out["bf16_vs_card0"] = {
+            "rel_err": _rel(bf16, ref["bf16"]),
+            "card0_bf16_noise": ref["bf16_noise"],
+            "bound": max(LM_CHECK_REL, 2 * ref["bf16_noise"])}
+        out["f32_vs_card0"] = {
+            "shape": list(LM_CHECK_SHAPE), "rel_err": _rel(f32, ref["f32"]),
+            "bound": MESH_F32_REL, "argmax_equal": bool(torch.equal(
+                f32.argmax(-1), ref["f32"].argmax(-1))),
+            "card0_peak_bytes": ref["peak_bytes"]}
+    elif lead:
+        out["consistency_f32"] = {
+            "shape": list(LM_CHECK_SHAPE), "rel_err": _rel(got, f32),
+            "bound": LM_CHECK_REL, "argmax_equal": bool(torch.equal(
+                got.argmax(-1), f32.argmax(-1)))}
+    cards = [None] * dist.get_world_size()
+    dist.all_gather_object(cards, card)
+    out["cards"] = cards
+    out["seconds"] = time.perf_counter() - t_row
+    return out
+
+
+def mesh_serve_worker_main(out_dir: str) -> int:
+    """``--mesh-serve-worker OUT_DIR``: one rank of phase 3j, started by
+    ``torch.distributed.run`` (one process a card, NCCL).  Rank 0 runs
+    card 0's one-card references first and frees them; then every row;
+    rank 0 writes the rows to ``OUT_DIR/mesh_serve.json`` after each."""
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.launch.mesh import make_local_mesh
+    t_phase = time.perf_counter()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = _serve_card(torch)
+    rows = MESH_SERVE_4 if world >= 4 else MESH_SERVE_2
+    t0 = time.perf_counter()
+    refs = _serve_refs(torch, np, rows, dev) if rank == 0 else None
+    res = {"world": world, "rows": [],
+           "references_s": time.perf_counter() - t0}
+    dist.barrier()
+    meshes = {}
+    for row in rows:
+        if row[2] not in meshes:
+            meshes[row[2]] = make_local_mesh(*row[2])
+        res["rows"].append(_mesh_serve_row(
+            torch, np, dist, row, meshes[row[2]], dev,
+            refs.get(row[0]) if refs else None))
+        res["seconds"] = time.perf_counter() - t_phase
+        if rank == 0:
+            with open(os.path.join(out_dir, "mesh_serve.json"), "w") as fh:
+                json.dump(res, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_serve_phase(torch, n_cards: int) -> None:
+    """Phase 3j: serving through the kernels on a mesh (module
+    docstring)."""
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build_all()        # once, here, not in each worker
+    res = _run_mesh_workers(torch, n_cards, "--mesh-serve-worker",
+                            "mesh_serve.json", MESH_SERVE_TIMEOUT_S,
+                            "mesh serve")
+    mesh_serve_report(res, t0)
+
+
+def mesh_serve_report(res, t0) -> None:
+    """Phase 3j's checks and ``mesh_serve`` lines over rank 0's rows."""
+    smi = card_line()
+    for row in res["rows"]:
+        cards = row["cards"]
+        checks = {
+            "tokens": row["tokens_ok"],
+            "launches": all(c["launches"] == {k: n for k, n in
+                                              row["need"].items() if n}
+                            for c in cards),
+            "caches_placed": row["caches_placed"],
+            "params_placed": row["params_placed"],
+            "param_bytes": all(c["param_bytes"] == row["want_param_bytes"]
+                               for c in cards)}
+        if row["one_card_reference"]:
+            b, f = row["bf16_vs_card0"], row["f32_vs_card0"]
+            checks["bf16_vs_card0"] = math.isfinite(b["rel_err"]) \
+                and b["rel_err"] <= b["bound"]
+            checks["f32_vs_card0"] = math.isfinite(f["rel_err"]) \
+                and f["rel_err"] <= f["bound"] and f["argmax_equal"]
+        else:
+            c = row["consistency_f32"]
+            checks["consistency_f32"] = math.isfinite(c["rel_err"]) \
+                and c["rel_err"] < c["bound"] and c["argmax_equal"]
+        line = {k: v for k, v in row.items() if k != "cards"}
+        line.update(
+            peak_bytes_per_card=[c["peak_bytes"] for c in cards],
+            f32_peak_bytes_per_card=[c["f32_peak_bytes"] for c in cards],
+            param_bytes_per_card=[c["param_bytes"] for c in cards],
+            launches_per_card=[c["launches"] for c in cards],
+            busy_share=[c["busy_ms"] if c["busy_ms"] == "not measured"
+                        else 1 - c["idle_share"] for c in cards],
+            idle_share=[c["idle_share"] for c in cards],
+            nccl_share=[c["nccl_share"] for c in cards],
+            profiled_window=f"prefill + {MESH_PROFILE_STEPS} decode steps",
+            profiled_ms=[c["profiled_ms"] for c in cards],
+            checks=checks, card=smi)
+        print("mesh_serve " + json.dumps(line))
+        if not all(checks.values()):
+            fail(f"mesh serve {row['row']} on {row['mesh']}: {checks}")
+    print("mesh_serve " + json.dumps({
+        "sub": "phase", "cards": res["world"],
+        "references_s": res["references_s"],
+        "worker_seconds": res["seconds"],
+        "seconds": time.perf_counter() - t0}))
+
+
 def launch_path_main(root: str) -> int:
     """``--launch-path ROOT``: build the kernels of the port under
     ``ROOT/src`` and print its ``launch_path`` line alone — run it once
@@ -3382,8 +3884,8 @@ def launch_path_main(root: str) -> int:
 
 
 def mesh_only_main() -> int:
-    """``--mesh-only``: phase 1's card line and phase 3i alone (two cards
-    or more)."""
+    """``--mesh-only``: phase 1's card line and phases 3i and 3j alone
+    (two cards or more)."""
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("chip_smoke: --mesh-only needs two CUDA devices or more",
@@ -3392,6 +3894,7 @@ def mesh_only_main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     print(card_line())
     mesh_phase(torch, torch.cuda.device_count())
+    mesh_serve_phase(torch, torch.cuda.device_count())
     return 0
 
 
@@ -3400,6 +3903,8 @@ if __name__ == "__main__":
         sys.exit(launch_path_main(sys.argv[2] if len(sys.argv) > 2 else "."))
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-serve-worker"]:
+        sys.exit(mesh_serve_worker_main(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-only"]:
         sys.exit(mesh_only_main())
     import argparse

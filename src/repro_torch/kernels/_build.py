@@ -37,6 +37,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from collections import Counter
 from pathlib import Path
@@ -188,22 +189,35 @@ def forbid_grad(kernel: str, *tensors) -> None:
     ``None`` inputs are skipped."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{kernel}: the CUDA kernel has no backward, and an input "
-            "requires grad; run it under torch.no_grad() or "
-            "torch.inference_mode(), or on CPU tensors (the plain version "
-            "differentiates)")
+        raise no_backward(kernel)
+
+
+def no_backward(kernel: str) -> RuntimeError:
+    """The error for a backward through the CUDA kernel ``kernel``."""
+    return RuntimeError(
+        f"{kernel}: the CUDA kernel has no backward, and an input "
+        "requires grad; run it under torch.no_grad() or "
+        "torch.inference_mode(), or on CPU tensors (the plain version "
+        "differentiates)")
 
 
 def launch(counter: str, entry: str, device: torch.device, *args) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream; tensors
     pass as their data pointers (``None`` as a null pointer), numbers as
-    themselves.  Raises when a tensor is not on ``device`` and on a CUDA
-    error, then counts one launch under ``counter`` on ``device``."""
+    themselves.  Raises when a tensor is a DTensor (a mesh runs the
+    wrapper on each rank's pieces, through ``local_map``) or not on
+    ``device``, and on a CUDA error; then counts one launch under
+    ``counter`` on ``device``."""
     index = device.index
     ptrs = []
     for a in args:
         if isinstance(a, torch.Tensor):
+            if type(a) is not torch.Tensor and _is_dtensor(a):
+                raise TypeError(
+                    f"{counter}: got a DTensor; the kernel takes a plain "
+                    "tensor on one card: call the wrapper on each rank's "
+                    "pieces through torch.distributed.tensor.experimental."
+                    "local_map")
             if a.get_device() != index:
                 _mixed_devices(entry, device, args)
             ptrs.append(a.data_ptr())
@@ -224,6 +238,11 @@ def launch(counter: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
     with _LAUNCH_LOCK:
         _LAUNCHES[(counter, index)] += 1
+
+
+def _is_dtensor(a) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(a, mod.DTensor)
 
 
 def _mixed_devices(entry: str, device: torch.device, args) -> None:

@@ -19,7 +19,10 @@ On a mesh (DTensor inputs, ``ml.sharding``'s active mesh),
 :func:`chunked_attention` pins the grouped queries and the online-softmax
 state as the reference does: heads over ``model`` when the KV head count
 divides it, else the query sequence, batch over the batch axes.  Without a
-mesh the pins return their inputs.
+mesh the pins return their inputs.  The kernel path runs
+``kops.flash_attention`` on each rank's pieces through ``local_map``
+(:func:`_attention`), and :func:`split_heads` gathers projection columns
+cut into pieces that are not whole heads.
 
 KV caches: dict(k, v [B, Hkv, Smax, hd], len int).  Rolling caches
 (SWA / local layers) store only ``window`` positions and are written
@@ -36,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .layers import dense_init, mrope, rope
-from .sharding import active_mesh, constrain, is_dtensor, mesh_sizes
+from .sharding import (active_mesh, batch_spec, constrain, is_dtensor,
+                       mesh_sizes, placements)
 
 __all__ = ["attn_init", "attn_apply", "chunked_attention",
            "decode_attention", "cache_update", "init_cache", "AttnSpec"]
@@ -146,13 +150,50 @@ def _whole_heads(q, k, v) -> bool:
                for d, n in cuts.items())
 
 
+def _kernel_placements(q, k, v):
+    """Placements under which each rank's pieces of q, k, v are whole
+    rows and whole heads: q's own where :func:`_whole_heads` holds; else
+    the batch over the batch axes where it divides and every other mesh
+    dim ``Replicate`` (the heads or ``hd`` gathered — the counterpart of
+    GSPMD gathering a custom call's operands)."""
+    if _whole_heads(q, k, v):
+        return list(q.placements)
+    mesh = q.device_mesh
+    return list(placements((batch_spec(mesh, q.shape[0]),), mesh))
+
+
+def _flash(q, k, v, **kw):
+    return kops.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), **kw)
+
+
 def _attention(q, k, v, *, causal, window, softcap, scale,
                impl: str = "kernel"):
     """Full-sequence attention: ``"kernel"`` through
     ``kops.flash_attention`` (the CUDA kernel on the card, no backward),
-    ``"reference"`` through :func:`chunked_attention`."""
+    ``"reference"`` through :func:`chunked_attention`.
+
+    On a mesh the kernel runs on each rank's pieces through ``local_map``
+    (a DTensor never reaches the wrapper), laid out by
+    :func:`_kernel_placements`: on the rank's own heads where q, k and v
+    hold whole heads, else on gathered heads, every rank over all of
+    them; the output goes back to q's placements."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+    if impl == "kernel":
+        if not is_dtensor(q):
+            return _flash(q, k, v, **kw)
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+        at = _kernel_placements(q, k, v)
+        mesh = q.device_mesh
+        out = local_map(partial(_flash, **kw), out_placements=at,
+                        in_placements=(at, at, at), device_mesh=mesh)(
+            *(t.redistribute(mesh, at) for t in (q, k, v)))
+        # back to q's placements; a partial sum (q projected from a cut
+        # d_model) comes back whole
+        return out.redistribute(mesh, [Replicate() if p.is_partial()
+                                       else p for p in q.placements])
     if impl == "reference":
-        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
         if _whole_heads(q, k, v):
             # each rank holds whole batch rows and whole heads: attention
             # needs no collective, so each runs it on its own pieces (on
@@ -164,11 +205,7 @@ def _attention(q, k, v, *, causal, window, softcap, scale,
                              out_placements=at, in_placements=(at, at, at),
                              device_mesh=q.device_mesh)(q, k, v)
         return chunked_attention(q, k, v, **kw)
-    if impl != "kernel":
-        raise ValueError(f"impl {impl!r}: expected 'kernel' or 'reference'")
-    return kops.flash_attention(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal=causal,
-                                window=window, softcap=softcap, scale=scale)
+    raise ValueError(f"impl {impl!r}: expected 'kernel' or 'reference'")
 
 
 # --------------------------------------------------------------------------
@@ -279,8 +316,25 @@ def attn_init(gen: torch.Generator, spec: AttnSpec):
     return p
 
 
+def split_heads(t, heads: int, head_dim: int):
+    """[B, S, H·hd] → [B, H, S, hd].  A DTensor whose columns are cut
+    into pieces that are not whole heads (15 heads over 4 ranks) is
+    gathered over the mesh dims that cut them first: DTensor refuses the
+    uneven view, where the reference's GSPMD gathers on its own."""
+    b, s, _ = t.shape
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        last = t.dim() - 1
+        n = math.prod(t.device_mesh.size(i) for i, p in
+                      enumerate(t.placements) if p.is_shard(last))
+        if heads % n:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if p.is_shard(last) else p
+                for p in t.placements])
+    return t.reshape(b, s, heads, head_dim).transpose(1, 2)
+
+
 def _project_qkv(x, p, spec: AttnSpec, positions):
-    b, s, _ = x.shape
     q = x @ p["wq"].to(x.dtype)
     k = x @ p["wk"].to(x.dtype)
     v = x @ p["wv"].to(x.dtype)
@@ -288,9 +342,9 @@ def _project_qkv(x, p, spec: AttnSpec, positions):
         q = q + p["wq_bias"].to(x.dtype)
         k = k + p["wk_bias"].to(x.dtype)
         v = v + p["wv_bias"].to(x.dtype)
-    q = q.reshape(b, s, spec.num_heads, spec.head_dim).transpose(1, 2)
-    k = k.reshape(b, s, spec.num_kv_heads, spec.head_dim).transpose(1, 2)
-    v = v.reshape(b, s, spec.num_kv_heads, spec.head_dim).transpose(1, 2)
+    q = split_heads(q, spec.num_heads, spec.head_dim)
+    k = split_heads(k, spec.num_kv_heads, spec.head_dim)
+    v = split_heads(v, spec.num_kv_heads, spec.head_dim)
     if positions is not None:
         fn = mrope if spec.mrope else rope
         q = fn(q, positions, spec.rope_theta)

@@ -18,13 +18,16 @@ solve each chunk's diagonal recurrence h_t = a_t ⊙ h_{t-1} + bx_t:
     ``jax.checkpoint``; it is differentiable.
 
 On a mesh the reference path pins each chunk's carry (batch over the
-batch axes, dI over ``model``) through ``ml.sharding.constrain``.
+batch axes, dI over ``model``) through ``ml.sharding.constrain``; the
+kernel path runs its whole chunk loop on each rank's own dI channels
+through ``local_map`` (one launch a chunk on every rank, no collective).
 
 Decode keeps O(1) state: {h: [B, dI, N], conv: [B, K-1, dI]}, one step in
 plain PyTorch.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -33,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .layers import dense_init, silu
-from .sharding import constrain
+from .sharding import (batch_spec, constrain, is_dtensor, mesh_sizes,
+                       placements)
 
 #: the dtype the chunk inputs are staged in, the reference's
 STAGE_DTYPE = torch.bfloat16
@@ -62,14 +66,19 @@ def mamba_init(gen: torch.Generator, d: int, *, expand: int = 2,
     }
 
 
+def _left_pad(x, n: int):
+    """x [B, S, dI] with ``n`` zero positions in front (a cat, not F.pad:
+    on a DTensor cut over dI, F.pad fails or leaves pieces of the wrong
+    size in some torch versions)."""
+    return torch.cat([torch.zeros_like(x[:, :1]).expand(-1, n, -1), x],
+                     dim=1)
+
+
 def _causal_conv(x, w, b):
     """Depthwise causal conv: x [B, S, dI], w [dI, K].  A bf16 x against
     float32 weights promotes to float32, as in the reference."""
     k = w.shape[1]
-    # k - 1 zero positions in front (a cat, not F.pad: on a DTensor cut
-    # over dI, F.pad's redistribute fails in some torch versions)
-    pad = torch.cat([torch.zeros_like(x[:, :1]).expand(-1, k - 1, -1), x],
-                    dim=1)
+    pad = _left_pad(x, k - 1)
     out = torch.zeros_like(x)
     for i in range(k):
         out = out + pad[:, i:i + x.shape[1], :] * w[:, i]
@@ -132,6 +141,52 @@ def _scan_chunk(h, xc, dc, bc, cc, A):
     return constrain(hs[:, -1], ("batch", "model", None)), y
 
 
+def _kernel_scan(dh, x1h, bh, ch, A, *, chunk: int):
+    """The kernel path's chunk loop over plain tensors: dh, x1h [B, S,
+    dI], bh, ch [B, S, N], A [dI, N] → (y [B, S, dI], final state [B, dI,
+    N]), one ``kops.ssm_scan`` a chunk from a zero carry."""
+    b, s, di = dh.shape
+    n = A.shape[1]
+    h = torch.zeros((b, di * n), dtype=torch.float32, device=dh.device)
+    ys = []
+    for c0 in range(0, s, chunk):
+        dc = dh[:, c0:c0 + chunk].float()
+        xc = x1h[:, c0:c0 + chunk].float()
+        bc = bh[:, c0:c0 + chunk].float()
+        cl = dc.shape[1]
+        a = torch.exp(dc[..., None] * A)                   # [B, c, dI, N]
+        bx = (dc * xc)[..., None] * bc[:, :, None, :]      # [B, c, dI, N]
+        hs, h = kops.ssm_scan(a.reshape(b, cl, di * n),
+                              bx.reshape(b, cl, di * n), h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs.view(b, cl, di, n),
+                               ch[:, c0:c0 + chunk].float()))
+    return torch.cat(ys, dim=1), h.view(b, di, n)
+
+
+def _kernel_scan_on_ranks(dh, x1h, bh, ch, A, chunk: int):
+    """:func:`_kernel_scan` on DTensors: each rank runs the whole chunk
+    loop on its own channels through ``local_map`` — dh, x1h, A and the
+    outputs cut over dI on ``model`` (replicated where dI does not divide
+    it), bh and ch whole over dI, the batch over the batch axes where it
+    divides.  The recurrence is per channel, so it needs no collective."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = dh.device_mesh
+    n_model = mesh_sizes(mesh).get("model", 1)
+    bat = batch_spec(mesh, dh.shape[0])
+    di = dh.shape[2]
+    chan = "model" if di % n_model == 0 and di >= n_model else None
+    at_chan = list(placements((bat, None, chan), mesh))
+    at_rows = list(placements((bat, None, None), mesh))
+    at_a = list(placements((chan, None), mesh))
+    at_h = list(placements((bat, chan, None), mesh))
+    ins = (at_chan, at_chan, at_rows, at_rows, at_a)
+    return local_map(partial(_kernel_scan, chunk=chunk),
+                     out_placements=(at_chan, at_h), in_placements=ins,
+                     device_mesh=mesh)(
+        *(t.redistribute(mesh, at)
+          for t, at in zip((dh, x1h, bh, ch, A), ins)))
+
+
 def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False,
                 impl: str = "kernel"):
     """x [B, S, D] → [B, S, D] (training / prefill).
@@ -145,8 +200,6 @@ def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False,
     if impl not in ("kernel", "reference"):
         raise ValueError(f"impl {impl!r}: expected 'kernel' or 'reference'")
     b, s, _ = x.shape
-    di = p["conv_w"].shape[0]
-    n = p["A_log"].shape[1]
     xz = x @ p["in_proj"].to(x.dtype)
     x1_raw, z = torch.chunk(xz, 2, dim=-1)
     x1 = silu(_causal_conv(x1_raw, p["conv_w"], p["conv_b"]))
@@ -160,40 +213,30 @@ def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False,
     bh = b_ssm.to(STAGE_DTYPE)
     ch = c_ssm.to(STAGE_DTYPE)
     c = min(chunk, s)
-    ys = []
     if impl == "reference":
+        ys = []
         pad = (-s) % c
         if pad:
             x1h, dh, bh, ch = (F.pad(t, (0, 0, 0, pad))
                                for t in (x1h, dh, bh, ch))
-        h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+        h = torch.zeros((b, *A.shape), dtype=torch.float32,
+                        device=x.device)
         for c0 in range(0, s + pad, c):
             h, yc = checkpoint(_scan_chunk, h, x1h[:, c0:c0 + c],
                                dh[:, c0:c0 + c], bh[:, c0:c0 + c],
                                ch[:, c0:c0 + c], A, use_reentrant=False)
             ys.append(yc)
         y = torch.cat(ys, dim=1)[:, :s]
+    elif is_dtensor(dh):
+        y, h = _kernel_scan_on_ranks(dh, x1h, bh, ch, A, c)
     else:
-        h = torch.zeros((b, di * n), dtype=torch.float32, device=x.device)
-        for c0 in range(0, s, c):
-            dc = dh[:, c0:c0 + c].float()
-            xc = x1h[:, c0:c0 + c].float()
-            bc = bh[:, c0:c0 + c].float()
-            cl = dc.shape[1]
-            a = torch.exp(dc[..., None] * A)               # [B, c, dI, N]
-            bx = (dc * xc)[..., None] * bc[:, :, None, :]  # [B, c, dI, N]
-            hs, h = kops.ssm_scan(a.reshape(b, cl, di * n),
-                                  bx.reshape(b, cl, di * n), h)
-            ys.append(torch.einsum("bcdn,bcn->bcd", hs.view(b, cl, di, n),
-                                   ch[:, c0:c0 + c].float()))
-        y = torch.cat(ys, dim=1)
-        h = h.view(b, di, n)
+        y, h = _kernel_scan(dh, x1h, bh, ch, A, chunk=c)
     y = y + p["D_skip"] * x1
     y = y.to(x.dtype) * silu(z)
     out = y @ p["out_proj"].to(y.dtype)
     if return_state:
         k = p["conv_w"].shape[1]
-        pre = F.pad(x1_raw, (0, 0, k - 1, 0))[:, -(k - 1):]
+        pre = _left_pad(x1_raw, k - 1)[:, -(k - 1):]
         return out, {"h": h, "conv": pre.float()}
     return out
 

@@ -27,9 +27,13 @@ of float32 sums only.
 
 The LM trains through ``impl="reference"`` (the plain, differentiable
 chunked attention and associative Mamba scan), as the reference's bundle
-does; the CUDA kernels have no backward and take plain tensors on one
-card, so ``impl="kernel"`` on a mesh raises.  ``input_specs`` and the
-``lower_*`` methods belong to the dry-run (ROADMAP A12b).
+does.  With ``impl="kernel"`` the serving steps reach the hand-written
+kernels, on a mesh on each rank's pieces (``attention._attention``,
+``mamba.mamba_apply``); the kernels have no backward, so on a mesh the
+train step of a model that reaches them raises their no-backward error
+(on one device the wrappers raise it for CUDA tensors under grad).
+``input_specs`` and the ``lower_*`` methods belong to the dry-run
+(ROADMAP A12b).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from typing import Optional
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels import _build
 from . import sharding as sh
 from .losses import chunked_lm_loss
 from .optim import (adamw_init, adamw_update, clip_by_global_norm,
@@ -49,14 +54,7 @@ from .optim import (adamw_init, adamw_update, clip_by_global_norm,
 from .sharding import cache_spec_leaf as _cache_spec_leaf
 from .transformer import LM
 
-__all__ = ["ModelBundle", "TrainConfig", "KERNEL_ON_MESH"]
-
-KERNEL_ON_MESH = (
-    "ModelBundle(mesh=..., impl='kernel'): the CUDA kernels take plain "
-    "tensors on one card and have no backward, and no reference path runs "
-    "a Pallas kernel on a mesh; a mesh trains and serves through "
-    "impl='reference' (ROADMAP.md: the ML meshes, queue A12a; a mesh "
-    "prefill through the kernels on each card's local heads is A12c)")
+__all__ = ["ModelBundle", "TrainConfig"]
 
 
 @dataclass
@@ -109,8 +107,6 @@ class ModelBundle:
     def __init__(self, cfg: ArchConfig, mesh=None, *,
                  impl: str = "reference",
                  train_cfg: Optional[TrainConfig] = None, device="cuda"):
-        if mesh is not None and impl == "kernel":
-            raise NotImplementedError(KERNEL_ON_MESH)
         self.cfg = cfg
         self.mesh = mesh
         self.device = _device_of(mesh, device)
@@ -276,6 +272,15 @@ class ModelBundle:
             yield
 
     # ------------------------------------------------------------- train
+    def _refuse_kernel_backward(self):
+        """On a mesh with ``impl="kernel"``, raise the kernels'
+        no-backward error when the model reaches a kernel."""
+        kinds = set(self.cfg.block_pattern)
+        names = [k for k, kind in (("flash_attention", "attn"),
+                                   ("ssm_scan", "mamba")) if kind in kinds]
+        if self.mesh is not None and self.lm.impl == "kernel" and names:
+            raise _build.no_backward(" and ".join(names))
+
     def loss_and_grads(self, params, batch):
         """The training objective and its gradients → (total, loss, aux,
         grads): ``loss`` the chunked LM cross-entropy, ``total`` plus the
@@ -283,6 +288,7 @@ class ModelBundle:
         the params' tree (zeros for a leaf it does not reach).  On a mesh
         the gradients are DTensors as autograd leaves them (partial over
         the batch axes): ``full_tensor()`` gives a whole one."""
+        self._refuse_kernel_backward()
         tc, lm = self.train_cfg, self.lm
         live = tree_map(lambda t: t.detach().requires_grad_(True), params)
         leaves = tree_leaves(live)
@@ -307,6 +313,7 @@ class ModelBundle:
         [B, S] (and M-RoPE ``positions`` [3, B, S], an encoder-decoder
         config's ``frames`` [B, Se, D]) on the params' device.
         The inputs are not modified."""
+        self._refuse_kernel_backward()
         tc = self.train_cfg
         lr_fn = cosine_schedule(tc.lr, tc.warmup, tc.total_steps)
 

@@ -40,7 +40,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["MeshShape", "mesh_sizes", "batch_axes", "param_specs",
+__all__ = ["MeshShape", "mesh_sizes", "batch_axes", "batch_spec",
+           "param_specs",
            "act_spec", "cache_specs", "NONE_SPEC", "zero1_specs",
            "extend_specs", "constrain", "active_mesh", "set_active_mesh",
            "using_mesh", "placements", "leaf_items", "map_with_path",
@@ -106,6 +107,15 @@ def batch_axes(mesh) -> Tuple[str, ...]:
     """Axes the global batch shards over."""
     names = mesh_sizes(mesh)
     return tuple(a for a in ("pod", "data") if a in names)
+
+
+def batch_spec(mesh, size: int):
+    """The spec entry of a batch dim of ``size``: the batch axes where
+    their product divides it, else None (replicated)."""
+    sizes = mesh_sizes(mesh)
+    ax = batch_axes(mesh)
+    n = math.prod(sizes[a] for a in ax) if ax else 1
+    return ax if ax and size % n == 0 else None
 
 
 def spec_divisor(spec, mesh) -> int:

@@ -48,7 +48,9 @@ block groups shard [batch → (pod, data), seq → model] (the reference's
 ``_seq_constraint``; whole again at each block's entry and before the
 head), and ``gather``, when the bundle sets it (FSDP),
 brings each block's parameters to their model-axis placements inside
-the block's checkpoint — the per-layer gather.
+the block's checkpoint — the per-layer gather.  With ``impl="kernel"``
+the prefill reaches the kernels on each rank's pieces (``attention``,
+``mamba``); the caches are filled and written in their own placements.
 """
 from __future__ import annotations
 
@@ -131,6 +133,42 @@ def _rows(table, ids):
     return torch.nn.functional.embedding(ids.long(), whole)
 
 
+def _pad_seq(t, cache):
+    """``t`` [B, H, n, hd] in the cache's dtype, zero-padded along the
+    sequence to the cache's length: a whole group of the cache (a slice
+    write along a sequence cut over the mesh would land on each rank's
+    own piece; the padding is a cat, as in ``mamba._causal_conv``)."""
+    t = t.to(cache.dtype)
+    pad = cache.shape[3] - t.shape[2]
+    if pad == 0:
+        return t
+    return torch.cat([t, torch.zeros_like(t[:, :, :1]).expand(
+        -1, -1, pad, -1)], dim=2)
+
+
+def _copy_into(dst, src):
+    """``dst.copy_(src)``, a DTensor ``src`` first brought to ``dst``'s
+    placements: some torch versions copy the local pieces of unlike
+    placements as they are."""
+    if is_dtensor(dst) and is_dtensor(src) \
+            and src.placements != dst.placements:
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
+def _write_pos(cache, t, pos: int):
+    """``cache[:, :, pos] = t[:, :, 0]`` in place (cache [B, H, S, hd]).
+    A DTensor cache whose sequence is cut over the mesh is written by a
+    masked blend: an index write along the cut would land on each rank's
+    own piece."""
+    new = t.to(cache.dtype)
+    if is_dtensor(cache) and any(p.is_shard(2) for p in cache.placements):
+        hit = torch.arange(cache.shape[2], device=new.device)[:, None] == pos
+        _copy_into(cache, torch.where(hit, new, cache))
+    else:
+        cache[:, :, pos] = new[:, :, 0]
+
+
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -208,11 +246,9 @@ def _mlp_tail(cfg: ArchConfig, x, p):
 def _project_cross_kv(enc_out, p_attn, spec):
     """Project encoder states with a block's wk/wv → [B, Hkv, Se, hd]
     (views; ``_attention`` makes them contiguous for the kernel)."""
-    be, se, _ = enc_out.shape
-    shape = (be, se, spec.num_kv_heads, spec.head_dim)
-    kx = (enc_out @ p_attn["wk"].to(enc_out.dtype)).reshape(shape)
-    vx = (enc_out @ p_attn["wv"].to(enc_out.dtype)).reshape(shape)
-    return kx.transpose(1, 2), vx.transpose(1, 2)
+    return tuple(A.split_heads(enc_out @ p_attn[w].to(enc_out.dtype),
+                               spec.num_kv_heads, spec.head_dim)
+                 for w in ("wk", "wv"))
 
 
 def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
@@ -285,8 +321,8 @@ def _block_decode(cfg: ArchConfig, slot: int, x, p, cache, pos: int):
         q, k, v = A._project_qkv(h, p["attn"], spec, positions)
         smax = cache["k"].shape[2]
         slot_pos = pos % smax if rolling else pos
-        cache["k"][:, :, slot_pos] = k[:, :, 0].to(cache["k"].dtype)
-        cache["v"][:, :, slot_pos] = v[:, :, 0].to(cache["v"].dtype)
+        _write_pos(cache["k"], k, slot_pos)
+        _write_pos(cache["v"], v, slot_pos)
         out = A.decode_attention(
             q, {"k": cache["k"], "v": cache["v"], "len": pos + 1},
             window=window, softcap=spec.softcap, rolling=rolling)
@@ -307,7 +343,7 @@ def _block_decode(cfg: ArchConfig, slot: int, x, p, cache, pos: int):
             cell = X.mlstm_decode if kind == "mlstm" else X.slstm_decode
             y, new = cell(h, p["cell"], cfg.num_heads, cache)
         for name, t in new.items():
-            cache[name].copy_(t)
+            _copy_into(cache[name], t)
         x = x + y
     x, _ = _mlp_tail(cfg, x, p)
     return x.to(in_dtype)
@@ -600,14 +636,15 @@ class LM:
                         shift = s % window
                         k = torch.roll(k[:, :, s - window:s], shift, dims=2)
                         v = torch.roll(v[:, :, s - window:s], shift, dims=2)
-                    n = k.shape[2]
-                    caches[key]["k"][g, :, :, :n] = k.to(torch.bfloat16)
-                    caches[key]["v"][g, :, :, :n] = v.to(torch.bfloat16)
+                    _copy_into(caches[key]["k"][g],
+                               _pad_seq(k, caches[key]["k"]))
+                    _copy_into(caches[key]["v"][g],
+                               _pad_seq(v, caches[key]["v"]))
                     for name in ("cross_k", "cross_v"):
                         if name in ex:
-                            caches[key][name][g] = ex[name].to(
-                                torch.bfloat16)
+                            _copy_into(caches[key][name][g],
+                                       ex[name].to(torch.bfloat16))
                 else:                   # Mamba's or xLSTM's final state
                     for name, t in ex.items():
-                        caches[key][name][g] = t
+                        _copy_into(caches[key][name][g], t)
         return caches

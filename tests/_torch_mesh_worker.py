@@ -326,6 +326,151 @@ def check_serving(res):
                       "cache_max_abs": cache_err}
 
 
+#: (case, arch, mesh, ArchConfig fields) of the kernel-serving checks on
+#: four ranks: EP, Mamba and 4 whole heads; the encoder and the cross
+#: attention; 6 q and 2 KV heads at hd 16, whose 96 columns cut into 4 × 24
+#: (one and a half heads a rank)
+KERNEL_SERVING = [("jamba_v0_1_52b:1x4", "jamba_v0_1_52b", (1, 4), {}),
+                  ("jamba_v0_1_52b:2x2", "jamba_v0_1_52b", (2, 2), {}),
+                  ("jamba_v0_1_52b:4x1", "jamba_v0_1_52b", (4, 1), {}),
+                  ("whisper_large_v3:1x4", "whisper_large_v3", (1, 4), {}),
+                  ("whisper_large_v3:2x2", "whisper_large_v3", (2, 2), {}),
+                  ("smollm_360m_6_2:1x4", "smollm_360m", (1, 4),
+                   {"num_heads": 6, "num_kv_heads": 2})]
+KERNEL_SERVING_2 = [("jamba_v0_1_52b:1x2", "jamba_v0_1_52b", (1, 2), {}),
+                    ("jamba_v0_1_52b:2x1", "jamba_v0_1_52b", (2, 1), {}),
+                    ("whisper_large_v3:1x2", "whisper_large_v3", (1, 2), {}),
+                    ("smollm_360m_6_2:1x2", "smollm_360m", (1, 2),
+                     {"num_heads": 6, "num_kv_heads": 2})]
+SERVE_SHAPE, SERVE_FRAMES = (4, 12), 20
+
+
+def _kernel_batch(cfg):
+    """The serving checks' batch: tokens [4, 12] (and Whisper's frame
+    embeddings [4, 20, D]) from the seed."""
+    b, s = SERVE_SHAPE
+    batch = {"tokens": _batch(cfg, seed=3)["tokens"][:b, :s]}
+    if cfg.encoder_layers:
+        rng = np.random.default_rng(4)
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(b, SERVE_FRAMES, cfg.d_model)).astype(np.float32)) \
+            .to(DEVICE)
+    return batch
+
+
+def _counting_wrappers():
+    """Replace ``kernels.ops.flash_attention`` / ``ssm_scan`` (what the LM
+    calls) by wrappers that count their calls and the calls handed a
+    DTensor; → (counts, restore)."""
+    from repro_torch.kernels import ops as kops
+    counts = {"flash_attention": 0, "ssm_scan": 0, "dtensor_args": 0}
+    orig = {k: getattr(kops, k) for k in ("flash_attention", "ssm_scan")}
+
+    def wrap(name):
+        def call(*args, **kw):
+            counts[name] += 1
+            if any(sh.is_dtensor(a) for a in args):
+                counts["dtensor_args"] += 1
+            return orig[name](*args, **kw)
+        return call
+
+    for k in orig:
+        setattr(kops, k, wrap(k))
+
+    def restore():
+        for k, f in orig.items():
+            setattr(kops, k, f)
+
+    return counts, restore
+
+
+def _serve_case(cfg, shape, batch):
+    """One kernel-serving case → its record (see
+    :func:`check_kernel_serving`)."""
+    from repro_torch.kernels import _build
+    s = batch["tokens"].shape[1]
+    one = ModelBundle(cfg, impl="kernel", device=DEVICE)
+    p = one.init_params(0)
+    with torch.no_grad():
+        lg0, c0 = one.make_prefill()(p, batch)
+        nt0 = torch.argmax(lg0, -1).to(torch.int32)
+        t1_one, c0 = one.make_decode_step()(p, c0, nt0, s)
+    mesh = _mesh(*shape)
+    mb = ModelBundle(cfg, mesh, impl="kernel")
+    dp = mb.shard_params(p)
+    counts, restore = _counting_wrappers()
+    if DEVICE == "cuda":
+        _build.reset_kernel_launches()
+    try:
+        with torch.no_grad():
+            lg, c = mb.make_prefill()(dp, mb.shard_batch(batch))
+    finally:
+        restore()
+    launches = _build.kernel_launches(
+        device=torch.cuda.current_device()) if DEVICE == "cuda" else {}
+    want = mb.cache_shardings(c)
+    placed = all(leaf.placements == w[1] for leaf, (_, w) in
+                 zip(tree_leaves(c), sh.leaf_items(want)))
+    prefill_err = float((_full(lg) - lg0).abs().max())
+    with torch.no_grad():
+        nt = mb.shard_batch({"tokens": torch.argmax(_full(lg), -1)
+                             .to(torch.int32)})["tokens"]
+        t1, c1 = mb.make_decode_step()(dp, c, nt, s)
+    cache_err = max(float((_full(a).float() - b.float()).abs().max())
+                    for a, b in zip(tree_leaves(c1), tree_leaves(c0)))
+    try:
+        mb.make_train_step()
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    return {
+        "caches_placed": placed, "prefill_max_abs": prefill_err,
+        "logit_max": float(lg0.abs().max()),
+        "same_tokens": bool(torch.equal(_full(t1), t1_one)),
+        "cache_max_abs": cache_err,
+        "calls_every_rank": dist_all(
+            {k: counts[k] for k in ("flash_attention", "ssm_scan")}),
+        "dtensor_args_every_rank": dist_all(counts["dtensor_args"]),
+        "launches_every_rank": dist_all(launches),
+        "want_calls": {
+            "flash_attention": kinds.count("attn")
+            * (1 + bool(cfg.encoder_layers)) + cfg.encoder_layers,
+            "ssm_scan": kinds.count("mamba") * -(-s // 256)},
+        "train_step_refused": refused}
+
+
+def check_kernel_serving(res):
+    """``ModelBundle(cfg, mesh, impl="kernel")``: a prefill and one decode
+    step on each case's mesh against the one-device kernel prefill and
+    decode with the same weights (on the CPU both run the kernels' plain
+    versions); every rank's wrapper calls (and on the card its kernel
+    launches) during the mesh prefill; the mesh train step's refusal.  A
+    model with Mamba layers runs as it is (the scan inputs staged in
+    bf16) and again with the staging in float32 (``mamba.STAGE_DTYPE``),
+    as :func:`check_jamba_step` does: a float32 ulp of the model axis'
+    partial sums can flip one bf16 staging rounding."""
+    from repro_torch.ml import mamba
+    cases = KERNEL_SERVING if dist.get_world_size() >= 4 \
+        else KERNEL_SERVING_2
+    out = {}
+    for key, arch, shape, fields in cases:
+        cfg = replace(_cfg(arch, layers=8 if arch.startswith("jamba")
+                           else None), **fields)
+        batch = _kernel_batch(cfg)
+        t0 = time.perf_counter()
+        row = _serve_case(cfg, shape, batch)
+        if "mamba" in cfg.block_pattern:
+            mamba.STAGE_DTYPE = torch.float32
+            try:
+                row["float32_stage"] = _serve_case(cfg, shape, batch)
+            finally:
+                mamba.STAGE_DTYPE = torch.bfloat16
+        row["seconds"] = time.perf_counter() - t0
+        out[key] = row
+    res["kernel_serving"] = out
+
+
 def check_psum(res):
     """``compressed_psum`` over the whole group and over the data dim of
     a 2×2 mesh: the result, the group's ranks (each rank's input is drawn
@@ -427,9 +572,10 @@ def check_train_loop(res, tmp):
 
 
 CHECKS = [check_local_meshes, check_placements, check_steps,
-          check_jamba_step, check_serving, check_psum, check_reshard,
-          check_elastic_restore, check_train_loop]
-CUDA_CHECKS = [check_steps, check_psum, check_elastic_restore]
+          check_jamba_step, check_serving, check_kernel_serving, check_psum,
+          check_reshard, check_elastic_restore, check_train_loop]
+CUDA_CHECKS = [check_steps, check_kernel_serving, check_psum,
+               check_elastic_restore]
 
 
 def main(rank, world, init_file, out_dir, device="cpu"):

@@ -1556,7 +1556,10 @@ def test_wrappers_refuse_tensors_of_two_cards(cards):
 #
 # ``tests/_torch_mesh_worker.py`` on NCCL, one process a card (four on a
 # host with four, else two): two reduced-Qwen train steps on each mesh
-# against the one-device step on the rank's card, ``compressed_psum``
+# against the one-device step on the rank's card, kernel serving
+# (``ModelBundle(cfg, mesh, impl="kernel")``: reduced Jamba, Whisper and
+# 6/2-head SmolLM, a prefill and a decode step against the rank's card
+# alone, rows 9 and 10 launched on every card), ``compressed_psum``
 # over the ranks and over the data dim, and a train state saved on the
 # mesh with a model axis restored onto data only.  The bounds are
 # ``tests/test_torch_mesh.py``'s (phase 3g's).
@@ -1652,3 +1655,34 @@ def test_mesh_elastic_restore_across_cards(mesh_ranks):
     assert row["bit_equal"] and row["function_bit_equal"]
     assert row["params_placed"] and row["moments_placed"]
     assert row["step"] == 3
+
+
+def test_mesh_kernel_serving_on_the_cards(mesh_ranks):
+    """Prefill and decode through the kernels on each rank's pieces
+    against the rank's card alone; every card launches flash_attention
+    once an attention layer and ssm_scan once a Mamba layer and chunk
+    (``_build.kernel_launches(device=)``), and no wrapper gets a
+    DTensor."""
+    world, res = mesh_ranks
+    rows = res["kernel_serving"]
+    want = ({"jamba_v0_1_52b:1x4", "jamba_v0_1_52b:2x2",
+             "jamba_v0_1_52b:4x1", "whisper_large_v3:1x4",
+             "whisper_large_v3:2x2", "smollm_360m_6_2:1x4"} if world == 4
+            else {"jamba_v0_1_52b:1x2", "jamba_v0_1_52b:2x1",
+                  "whisper_large_v3:1x2", "smollm_360m_6_2:1x2"})
+    assert set(rows) == want
+    for key, row in rows.items():
+        checks = [row] + ([row["float32_stage"]] if "float32_stage" in row
+                          else [])
+        for r in checks:
+            assert r["caches_placed"] and r["same_tokens"], key
+            assert r["cache_max_abs"] <= 2.0 ** -7 * 4, key
+            launched = {k: n for k, n in r["want_calls"].items() if n}
+            assert r["launches_every_rank"] == [launched] * world, key
+            assert r["calls_every_rank"] == [r["want_calls"]] * world, key
+            assert r["dtensor_args_every_rank"] == [0] * world, key
+        if "float32_stage" in row:
+            assert row["float32_stage"]["prefill_max_abs"] <= 1e-4, key
+            assert row["prefill_max_abs"] <= 2.0 ** -8 * row["logit_max"]
+        else:
+            assert row["prefill_max_abs"] <= 1e-4, key

@@ -23,6 +23,13 @@ group:
     the reference); loss and gradients of a reduced Jamba cut to one block
     cycle on 2×2;
   * a prefill and a decode step on 2×2 with ``cache_shardings``;
+  * ``ModelBundle(cfg, mesh, impl="kernel")`` serving a reduced Jamba
+    (cut to one block cycle: EP, Mamba, 4 whole heads) on 1×4, 2×2 and
+    4×1, a reduced Whisper (encoder, cross attention) on 1×4 and 2×2 and
+    a reduced SmolLM with 6 q and 2 KV heads (one and a half heads a rank)
+    on 1×4: a prefill and a decode step against the one-device kernel
+    path with the same weights, each rank's wrapper calls, no DTensor
+    handed to a wrapper, and the mesh train step's refusal;
   * ``compressed_psum`` over the world and over the data dim of 2×2;
   * ``reshard_plan`` on 1×1 and 1×1 → 2×2;
   * a train state saved on 2×2 and restored on 4×1 (the reference's
@@ -48,12 +55,19 @@ element as well.  ``compressed_psum`` must equal the
 mean of the ranks' dequantized int8 payloads, each quantized with the
 reference's ``_quant_int8``, within 1e-6 relative (the mean's order of
 sums).  Placements, bytes, restored leaves and cache layouts are exact.
+Kernel serving is held with ``test_prefill_and_decode_on_a_mesh``'s
+bounds (prefill within 1e-4, the same decode tokens, caches within
+4·2^-7); a model with Mamba layers meets the prefill bound with the scan
+inputs staged in float32, and as it is (staged in bf16, where a float32
+ulp of the model axis' sums can flip one staging rounding) within 2^-8 of
+its largest |logit|.
 """
 import json
 import os
 import subprocess
 import sys
 import time
+from dataclasses import replace as replace_cfg
 from pathlib import Path
 
 import numpy as np
@@ -84,6 +98,14 @@ STEP_PARAM_ATOL = 1e-5
 PSUM_RTOL = 1e-6
 STEP_NAMES = ["data4", "2x2", "zero1", "fsdp", "fsdp_2x2",
               "seq_parallel_off", "compress_grads"]
+KERNEL_CASES = ["jamba_v0_1_52b:1x4", "jamba_v0_1_52b:2x2",
+                "jamba_v0_1_52b:4x1", "whisper_large_v3:1x4",
+                "whisper_large_v3:2x2", "smollm_360m_6_2:1x4"]
+#: the reduced configs of the kernel-serving cases (ArchConfig fields)
+KERNEL_CONFIGS = {"jamba_v0_1_52b": {"num_layers": 8},
+                  "whisper_large_v3": {},
+                  "smollm_360m": {"num_heads": 6, "num_kv_heads": 2}}
+SERVE_PREFILL_ATOL, SERVE_CACHE_ATOL = 1e-4, 2.0 ** -7 * 4
 PLACEMENTS = [f"{a}:{m}:{k}" for a in ("qwen1_5_0_5b", "jamba_v0_1_52b")
               for m, k in (("2x2", "plain"), ("4x1", "zero1"),
                            ("2x2", "fsdp"), ("2x2", "compress_grads"))]
@@ -240,6 +262,83 @@ def test_prefill_and_decode_on_a_mesh(ranks):
     assert row["same_tokens"]
     # bf16 caches: one rounding of a float32 difference may flip an ulp
     assert row["cache_max_abs"] <= 2.0 ** -7 * 4
+
+
+def _kernel_rows(row):
+    """A case's records: as the model is, and with the Mamba scan inputs
+    staged in float32 where the model has Mamba layers."""
+    return [row] + ([row["float32_stage"]] if "float32_stage" in row
+                    else [])
+
+
+@pytest.mark.parametrize("key", KERNEL_CASES)
+def test_kernel_serving_matches_one_device(ranks, key):
+    """``ModelBundle(cfg, mesh, impl="kernel")``'s prefill and decode step
+    against the one-device kernel path with the same weights."""
+    row = ranks["kernel_serving"][key]
+    for r in _kernel_rows(row):
+        assert r["caches_placed"]
+        assert r["same_tokens"]
+        assert r["cache_max_abs"] <= SERVE_CACHE_ATOL
+    if "float32_stage" in row:
+        assert row["float32_stage"]["prefill_max_abs"] <= SERVE_PREFILL_ATOL
+        assert row["prefill_max_abs"] <= 2.0 ** -8 * row["logit_max"]
+    else:
+        assert row["prefill_max_abs"] <= SERVE_PREFILL_ATOL
+
+
+@pytest.mark.parametrize("key", KERNEL_CASES)
+def test_kernel_serving_calls_the_wrappers_on_every_rank(ranks, key):
+    """Every rank calls flash_attention once an attention layer (Whisper:
+    encoder, decoder and cross) and ssm_scan once a Mamba layer and
+    chunk during the mesh prefill, on plain tensors only; the mesh train
+    step raises the kernels' no-backward error."""
+    row = ranks["kernel_serving"][key]
+    assert row["want_calls"]["flash_attention"] > 0
+    for r in _kernel_rows(row):
+        assert r["calls_every_rank"] == [r["want_calls"]] * WORLD
+        assert r["dtensor_args_every_rank"] == [0] * WORLD
+        assert "no backward" in r["train_step_refused"]
+
+
+@pytest.mark.parametrize("arch", list(KERNEL_CONFIGS))
+def test_one_device_kernel_prefill_matches_interpret(arch):
+    """The one-device kernel prefill of each kernel-serving config (the
+    plain versions on the CPU) and three decode steps against the JAX
+    package's ``LM(impl="interpret")`` (its Pallas kernels in interpret
+    mode) with the parameters carried over, float32 activations."""
+    from repro_torch.ml.params import from_jax_params
+    from repro_torch.ml.transformer import LM
+    over = dict(KERNEL_CONFIGS[arch], act_dtype="float32")
+    jcfg = replace_cfg(jget_config(arch).reduced(), **over)
+    tcfg = replace_cfg(get_config(arch).reduced(), **over)
+    jlm = JLM(jcfg, impl="interpret")
+    jp = jlm.init(jax.random.key(0))
+    tp = from_jax_params(tcfg, jax.tree_util.tree_map(np.asarray, jp),
+                         device="cpu")
+    lm = LM(tcfg)
+    rng = np.random.default_rng(5)
+    b, s = 2, 20
+    toks = rng.integers(0, tcfg.vocab_size, (b, s)).astype(np.int32)
+    jkw, tkw = {}, {}
+    if tcfg.encoder_layers:
+        fr = rng.normal(size=(b, 24, tcfg.d_model)).astype(np.float32)
+        jkw = {"frames": jnp.asarray(fr).astype(jnp.bfloat16)}
+        tkw = {"frames": torch.from_numpy(fr).to(torch.bfloat16)}
+    jl, jc = jlm.prefill(jp, jnp.asarray(toks), **jkw)
+    with torch.no_grad():
+        tl, tc = lm.prefill(tp, torch.from_numpy(toks), **tkw)
+        want = np.asarray(jl)
+        assert float(np.abs(tl.numpy() - want).max()) <= \
+            1e-4 * np.abs(want).max()
+        assert (tl.numpy().argmax(-1) == want.argmax(-1)).all()
+        for t in range(3):
+            cur = np.array(jnp.argmax(jl, axis=-1), np.int32)
+            jl, jc = jlm.decode_step(jp, jnp.asarray(cur), jc, s + t)
+            tl, tc = lm.decode_step(tp, torch.from_numpy(cur), tc, s + t)
+            want = np.asarray(jl)
+            assert float(np.abs(tl.numpy() - want).max()) <= \
+                2e-3 * np.abs(want).max(), t
 
 
 # ---------------------------------------------------------- collectives

@@ -259,7 +259,47 @@ def test_constrain_returns_plain_tensors_on_a_mesh():
     assert sh.active_mesh() is None
 
 
-def test_kernel_impl_on_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="impl='reference'"):
-        ModelBundle(get_config("qwen1_5_0_5b"), sh.MeshShape((2, 2)),
-                    impl="kernel", device="cpu")
+def test_kernel_impl_on_a_mesh_builds_and_refuses_training():
+    """``ModelBundle(cfg, mesh, impl="kernel")`` builds (its serving steps
+    reach the kernels on each rank's pieces); its train step raises the
+    kernels' own no-backward error, which the wrappers raise on one
+    card."""
+    mb = ModelBundle(get_config("qwen1_5_0_5b"), sh.MeshShape((2, 2)),
+                     impl="kernel", device="cpu")
+    assert mb.lm.impl == "kernel"
+    assert callable(mb.make_prefill()) and callable(mb.make_decode_step())
+    with pytest.raises(RuntimeError, match="flash_attention: the CUDA "
+                       "kernel has no backward"):
+        mb.make_train_step()
+    with pytest.raises(RuntimeError, match="no backward"):
+        mb.loss_and_grads({}, {})
+    # on a mesh with impl="reference", and for a model that reaches no
+    # kernel, the step is built
+    ModelBundle(get_config("qwen1_5_0_5b"), sh.MeshShape((2, 2)),
+                device="cpu").make_train_step()
+    ModelBundle(get_config("xlstm_1_3b"), sh.MeshShape((2, 2)),
+                impl="kernel", device="cpu").make_train_step()
+
+
+def test_launch_refuses_a_dtensor(tmp_path):
+    """A DTensor handed to ``_build.launch`` raises, naming the wrapper and
+    ``local_map``, before any build or pointer is taken (a process group
+    of one, gloo)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.kernels import _build
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+        t = distribute_tensor(torch.ones((4, 8)), mesh, [Replicate()])
+        before = _build.kernel_launches()
+        with pytest.raises(TypeError, match="flash_attention: got a "
+                           "DTensor.*local_map"):
+            _build.launch("flash_attention", "repro_flash_attention_simt",
+                          torch.device("cuda", 0), t, 4)
+        assert _build.kernel_launches() == before
+        assert not _build._ENTRIES        # nothing was built or loaded
+    finally:
+        dist.destroy_process_group()
