@@ -159,6 +159,26 @@ around it: it imports nothing of the JAX package.  Phases:
    tokens/s, peak and parameter bytes a card, launches a card, busy, idle
    and NCCL share a card over a prefill and 3 decode steps, the checks'
    errors and bounds, the card line;
+3k. dryrun: ``launch.dryrun`` held to real steps.  In a process of its
+   own (this script with ``--dryrun-worker``): phase 3g's SmolLM-360M
+   train step (float32 params and moments, bf16 activations, batch 8 ×
+   512, remat full, the full logits) dry-run on fake tensors, then run on
+   the card from seeded params — one warm step, then one under the same
+   ``StepCounter`` on real tensors with the allocator's peak reset just
+   before it: the predicted peak within DRYRUN_PEAK_REL of
+   ``max_memory_allocated()`` or DRYRUN_PEAK_ABS, whichever is larger, the
+   FLOPs equal to the card's count, no kernel launched.  Then
+   ``qwen1_5_0_5b × train_4k × 16x16`` through the CLI (``python -m
+   repro_torch.launch.dryrun``, this host's torch) and its seconds.  With
+   four cards or more: each of 3i's four-card meshes dry-run on a fake
+   4-rank group (``--dryrun-mesh-worker``, on the host while 3i runs) and
+   held to rank 0's real NCCL step (one more step in 3i under
+   ``CommDebugMode``): the collectives a kind equal, the argument bytes
+   equal to the local parameter, optimizer and batch bytes, every card's
+   peak of that step within the bound; 3j's full-depth Jamba on 1 × 4:
+   the predicted parameter bytes a card equal to every card's.  With
+   fewer cards it prints that the four-card part did not run.  ``dryrun``
+   lines: predicted and measured bytes by category, FLOPs, seconds;
 4. kernels: each kernel against its plain PyTorch version on the card, at
    the largest shape the main path gave it (both segment_agg branches —
    the shared one must give the same bits from two calls, and the library
@@ -168,9 +188,11 @@ around it: it imports nothing of the JAX package.  Phases:
    serve phase's stacks; flash_attention at each LM configuration's bf16
    prefill — Whisper's encoder self-attention and cross-attention too,
    non-causal, against SDPA with ``is_causal=False`` — naming the kernel
-   its dispatch ran, the tensor-core one at head dims 64 and 128; its
-   larger shape is the largest causal prefill call tiled 4× along the
-   sequence) and at one larger shape, timed with CUDA events beside the
+   its dispatch ran, the tensor-core one at head dims 64 and 128, and
+   Gemma 3 12B's local layers at hd 256 (the SIMT kernel, window 1024,
+   softcap 50) on seeded [4, 16, 445, 256] inputs, beside SDPA's causal
+   time without window or softcap; its larger shape is the largest causal
+   prefill call tiled 4× along the sequence) and at one larger shape, timed with CUDA events beside the
    plain version and a library call, and its wrapper's device
    time and device operations per call from ``torch.profiler``
    (``device_ms``, ``device_ops``, ``device_records``); then the two
@@ -210,7 +232,7 @@ launch paths compared in one call, one process each).
 
     python3 chip_smoke.py --mesh-only
 
-runs phase 1's card line and phases 3i and 3j alone (two cards or
+runs phase 1's card line and phases 3i, 3j and 3k alone (two cards or
 more).
 
 Tolerances: selections, ids, counts and integer tables are exact.  A
@@ -318,6 +340,10 @@ LM_CHECK_REL = 0.02
 #: Whisper: frame embeddings [batch, encoder positions] (30 s of audio at
 #: the encoder's 50 positions a second) and decoder prompt lengths drawn
 #: from this range (its decoder context is 448)
+#: phase 4's Gemma 3 12B row 9 case: q, k, v at the lm prefills' shape,
+#: 16 q / 8 KV heads at hd 256, and its local layers' mask
+GEMMA_FLASH_SHAPES = ((4, 16, 445, 256), (4, 8, 445, 256), (4, 8, 445, 256))
+GEMMA_FLASH_KW = (("causal", True), ("window", 1024), ("softcap", 50.0))
 WHISPER_FRAMES = (4, 1500)
 WHISPER_PROMPT_LENS = (4, 224)
 #: kernel vs plain version: flash_attention within ``ref.flash_tolerance``
@@ -792,8 +818,11 @@ def main(require_cards: int = 1) -> int:
     phase_done("3h cards")
 
     # ------------------------------------------------------------- 3i. mesh
+    # phase 3k's four-card dry-runs run on the host meanwhile
+    mesh_dry = start_dryrun_mesh() if n_cards >= 4 else None
+    mesh_res = serve_res = None
     if n_cards > 1:
-        mesh_phase(torch, n_cards)
+        mesh_res = mesh_phase(torch, n_cards)
     else:
         print("mesh: phase 3i did not run: one CUDA device is visible, and "
               "a device mesh needs two or more (python3 chip_smoke.py "
@@ -802,13 +831,17 @@ def main(require_cards: int = 1) -> int:
 
     # ------------------------------------------------------- 3j. mesh serve
     if n_cards > 1:
-        mesh_serve_phase(torch, n_cards)
+        serve_res = mesh_serve_phase(torch, n_cards)
     else:
         print("mesh_serve: phase 3j did not run: one CUDA device is "
               "visible, and serving on a device mesh needs two or more "
               "(python3 chip_smoke.py --require-cards 4 on a host with "
               "four)")
     phase_done("3j mesh serve")
+
+    # ----------------------------------------------------------- 3k. dryrun
+    dryrun_phase(torch, n_cards, mesh_dry, mesh_res, serve_res)
+    phase_done("3k dryrun")
     for mod, name in wrappers:
         setattr(mod, name, originals[name])
 
@@ -1154,6 +1187,32 @@ def main(require_cards: int = 1) -> int:
                                                    args[0].shape[-1]),
                     **measure(name, *flash_case(torch, *args, **kw), 20, 3,
                               BF16_TENSOR_OPS_PER_S)}
+            # Gemma 3 12B's local layers: hd 256 runs the SIMT kernel,
+            # window 1024, softcap 50.  No lm phase serves Gemma: seeded
+            # inputs at the lm prefills' shape.  SDPA has neither window
+            # nor softcap (library_ms stays null); its causal time on the
+            # same inputs stands beside the row
+            gen = torch.Generator(device="cuda").manual_seed(25)
+            gq, gk, gv = (torch.randn(s_, generator=gen, device="cuda")
+                          .to(torch.bfloat16) for s_ in GEMMA_FLASH_SHAPES)
+            gkw = dict(GEMMA_FLASH_KW)
+            gemma = {"config": "gemma3_12b", "shape": list(gq.shape),
+                     "kv_shape": list(gk.shape), **gkw,
+                     "kernel": fa_kernel.kernel_for(gq.dtype, gq.shape[-1]),
+                     **measure(name, *flash_case(torch, gq, gk, gv, **gkw),
+                               20, 3, BF16_TENSOR_OPS_PER_S)}
+            from torch.nn.functional import scaled_dot_product_attention
+            gemma["sdpa_causal_ms_without_window_softcap"] = cuda_ms(
+                lambda: scaled_dot_product_attention(
+                    gq, gk, gv, is_causal=True, enable_gqa=True), 20)
+            entry["gemma3_hd256"] = gemma
+            print(f"kernel flash_attention[gemma3_12b]: {gemma['kernel']} "
+                  f"{gemma['shape']} device {gemma['device_ms']} ms, "
+                  f"{gemma['ms']} ms (bound {gemma['bound_ms']:.5f}; SDPA "
+                  "causal, without window and softcap, "
+                  f"{gemma['sdpa_causal_ms_without_window_softcap']}); "
+                  f"max |err| {gemma['max_abs_err']}")
+            del gq, gk, gv
             # the largest causal prefill call scales to the larger
             # shape, not an encoder's or a cross call
             top = max(((k, v) for k, v in
@@ -3139,7 +3198,26 @@ def _mesh_run(torch, dist, cfg, mesh, name, kw, batch, ref):
         step(params, opt, sbatch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # one more step for phase 3k: its collectives (rank 0) and its peak
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch.dryrun import collective_kind
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    comm = CommDebugMode()
+    with comm:
+        stepped = step(params, opt, sbatch)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    del stepped
+    counts = {}
+    for op, n in comm.get_comm_counts().items():
+        kind = collective_kind(op)
+        if kind is not None and n:
+            counts[kind] = counts.get(kind, 0) + n
+    row.update(comm_counts=counts, batch_bytes=_local_bytes(sbatch))
     card = {"card": torch.cuda.current_device(), "peak_bytes": peak,
+            "dryrun_peak_bytes": step_peak,
             "profiled_step_ms": wall, **_nccl_busy(torch, prof, wall)}
     del prof, params, opt, sbatch
     torch.cuda.empty_cache()
@@ -3333,12 +3411,13 @@ def _run_mesh_workers(torch, n_cards: int, flag: str, result: str,
         shutil.rmtree(out, ignore_errors=True)
 
 
-def mesh_phase(torch, n_cards: int) -> None:
+def mesh_phase(torch, n_cards: int):
     """Phase 3i: the ML meshes (module docstring)."""
     t0 = time.perf_counter()
     res = _run_mesh_workers(torch, n_cards, "--mesh-worker", "mesh.json",
                             MESH_TIMEOUT_S, "mesh")
     mesh_report(res, t0)
+    return res
 
 
 def mesh_report(res, t0) -> None:
@@ -3806,7 +3885,7 @@ def mesh_serve_worker_main(out_dir: str) -> int:
     return 0
 
 
-def mesh_serve_phase(torch, n_cards: int) -> None:
+def mesh_serve_phase(torch, n_cards: int):
     """Phase 3j: serving through the kernels on a mesh (module
     docstring)."""
     from repro_torch.kernels import _build
@@ -3816,6 +3895,7 @@ def mesh_serve_phase(torch, n_cards: int) -> None:
                             "mesh_serve.json", MESH_SERVE_TIMEOUT_S,
                             "mesh serve")
     mesh_serve_report(res, t0)
+    return res
 
 
 def mesh_serve_report(res, t0) -> None:
@@ -3865,6 +3945,277 @@ def mesh_serve_report(res, t0) -> None:
         "seconds": time.perf_counter() - t0}))
 
 
+# ----------------------------------------------------------- 3k. dryrun
+#: phase 3k: phase 3g's SmolLM-360M train step (float32 params and moments,
+#: bf16 activations, LM_TRAIN's batch, remat full, the full logits) dry-run
+#: on one device and run on the card; the predicted peak is held within
+#: DRYRUN_PEAK_REL of the measured one or DRYRUN_PEAK_ABS, whichever is
+#: larger
+DRYRUN_ARCH = "smollm_360m"
+DRYRUN_PEAK_REL, DRYRUN_PEAK_ABS = 0.15, 1 << 30
+#: a production cell through the CLI (torch 2.11 on the card's host)
+DRYRUN_CELL = ("qwen1_5_0_5b", "train_4k", "false")
+DRYRUN_TIMEOUT_S = 600
+#: 3j's full-depth row, dry-run for its parameter bytes a card
+DRYRUN_SERVE_ROW = ("jamba_v0_1_52b", (1, 4), (4, 445))
+
+
+def _dryrun_tc():
+    from repro_torch.ml.model import TrainConfig
+    return TrainConfig(lr=1e-3, loss_chunk=None, remat="full")
+
+
+def _run_json(argv, out_path, timeout, what):
+    """Run ``argv`` (``PYTHONPATH=src``) and return the JSON it wrote to
+    ``out_path``; a non-zero exit fails the phase."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    proc = subprocess.run(argv, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        fail(f"{what}: exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-6000:]}")
+    with open(out_path) as fh:
+        return json.load(fh)
+
+
+def dryrun_worker_main(out_path: str) -> int:
+    """``--dryrun-worker OUT``: phase 3k's one-card part in a process of
+    its own.  The dry-run of phase 3g's SmolLM-360M train step on fake
+    tensors (no process group, no device touched), then the same step on
+    the card from seeded params and tokens: one warm step, then one under
+    the same counter on real tensors with the allocator's peak reset
+    just before it."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch.dryrun import StepCounter
+    from repro_torch.ml.model import ModelBundle
+    cfg = get_config(DRYRUN_ARCH)
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    mb = ModelBundle(cfg, train_cfg=_dryrun_tc(), device="cuda")
+    low = mb.lower_train(ShapeConfig("lm_train", s, b, "train"))
+    t0 = time.perf_counter()
+    params = mb.init_params(0)
+    opt = mb.init_opt_state(params)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1)).astype(np.int32)).cuda()
+    batch = {"tokens": tok[:, :-1].contiguous(),
+             "labels": tok[:, 1:].contiguous()}
+    step = mb.make_train_step()
+    _build.reset_kernel_launches()
+    params, opt, _ = step(params, opt, batch)           # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    counter = StepCounter()
+    with counter:
+        counter.hold((params, opt, batch))
+        out = step(params, opt, batch)
+        counter.finish(out)
+    torch.cuda.synchronize()
+    peak, after = torch.cuda.max_memory_allocated(), \
+        torch.cuda.memory_allocated()
+    with open(out_path, "w") as fh:
+        json.dump({"predicted": low.memory, "flops": low.cost[
+                       "flops_per_device"],
+                   "bytes": low.cost["bytes_per_device"],
+                   "dryrun_s": low.seconds,
+                   "measured": {"argument_bytes": before,
+                                "output_bytes": after - before,
+                                "temp_bytes": peak - before,
+                                "peak_bytes": peak},
+                   "counted_real": counter.record()["memory"],
+                   "flops_real": counter.flops,
+                   "card_s": time.perf_counter() - t0,
+                   "launches": sum(_build.kernel_launches().values())}, fh)
+    return 0
+
+
+def dryrun_mesh_worker_main(out_path: str) -> int:
+    """``--dryrun-mesh-worker OUT``: phase 3k's four-card part on the host
+    alone — each of phase 3i's four-card meshes dry-run on a fake 4-rank
+    group (3i's config, train config and batch; an all-to-all counted as
+    NCCL runs it), and 3j's full-depth Jamba prefill on 1 × 4 for its
+    parameter bytes a card."""
+    from dataclasses import replace
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.ml.model import ModelBundle
+    from repro_torch.ml.optim import tree_leaves
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    out = {"meshes": {}}
+    cfg = replace(get_config(MESH_ARCH), act_dtype="float32")
+    shape = ShapeConfig("mesh", MESH_SEQ, MESH_BATCH, "train")
+    with fake_world(4):
+        for name, mshape, kw in MESHES_4:
+            mb = ModelBundle(cfg, make_local_mesh(*mshape, device="cpu"),
+                             train_cfg=_mesh_tc(kw))
+            low = mb.lower_train(shape)
+            out["meshes"][name] = {"counts": low.counts,
+                                   "memory": low.memory,
+                                   "collectives": low.collectives,
+                                   "seconds": low.seconds}
+        arch, mshape, (b, s) = DRYRUN_SERVE_ROW
+        mb = ModelBundle(_serve_cfg(arch, None),
+                         make_local_mesh(*mshape, device="cpu"))
+        serve = ShapeConfig("serve", s, b, "prefill")
+        with FakeTensorMode():
+            params, _ = mb.fake_args("prefill", serve)
+            param_bytes = sum(t.to_local().numel() * t.element_size()
+                              for t in tree_leaves(params))
+        low = mb.lower_prefill(serve)
+        out["serve"] = {"row": arch, "mesh": list(mshape),
+                        "param_bytes": param_bytes, "memory": low.memory,
+                        "counts": low.counts, "seconds": low.seconds}
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def start_dryrun_mesh():
+    """Start the four-card dry-runs on the host (they need no card) →
+    (process, output path); :func:`dryrun_phase` collects them."""
+    import os
+    import tempfile
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"),
+                       "mesh.json")
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dryrun-mesh-worker", out], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, out
+
+
+def _peak_ok(predicted, measured):
+    return abs(predicted - measured) <= max(DRYRUN_PEAK_REL * measured,
+                                            DRYRUN_PEAK_ABS)
+
+
+def dryrun_phase(torch, n_cards: int, mesh_dry=None, mesh_res=None,
+                 serve_res=None) -> None:
+    """Phase 3k: the dry-run held to real steps (module docstring)."""
+    import os
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    smi = card_line()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        here = str(Path(__file__).resolve())
+        one = _run_json([sys.executable, here, "--dryrun-worker",
+                         os.path.join(tmp, "one.json")],
+                        os.path.join(tmp, "one.json"), DRYRUN_TIMEOUT_S,
+                        "dryrun")
+        pred, meas = one["predicted"], one["measured"]
+        checks = {"flops": one["flops"] == one["flops_real"] > 0,
+                  "peak": _peak_ok(pred["peak_bytes"], meas["peak_bytes"]),
+                  "no_kernel": one["launches"] == 0}
+        print("dryrun " + json.dumps({
+            "sub": "one_card", "arch": DRYRUN_ARCH,
+            "batch": [LM_TRAIN["batch"], LM_TRAIN["seq"]],
+            "predicted": pred, "measured": meas,
+            "counted_on_the_card": one["counted_real"],
+            "flops": one["flops"], "flops_on_the_card": one["flops_real"],
+            "bytes": one["bytes"], "dryrun_s": one["dryrun_s"],
+            "card_s": one["card_s"],
+            "peak_bound": {"rel": DRYRUN_PEAK_REL, "abs": DRYRUN_PEAK_ABS},
+            "checks": checks, "card": smi}))
+        if not all(checks.values()):
+            fail(f"dryrun one card: {checks}")
+        arch, shape, pod = DRYRUN_CELL
+        out_dir = os.path.join(tmp, "cell")
+        t1 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(Path(here).parent / "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--multi_pod", pod, "--out_dir",
+             out_dir], env=env, capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT_S)
+        if proc.returncode != 0:
+            fail(f"dryrun {arch} × {shape}: exited {proc.returncode}:\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        with open(os.path.join(out_dir, f"{arch}-{shape}-pod.json")) as fh:
+            rec = json.load(fh)
+        print("dryrun " + json.dumps({
+            "sub": "cell", "arch": arch, "shape": shape, "mesh": rec["mesh"],
+            "cli_s": time.perf_counter() - t1, "lower_s": rec["lower_s"],
+            "memory": rec["memory"], "cost": rec["cost"],
+            "collectives": rec["collectives"],
+            "warnings": rec["analyzed"]["warnings"],
+            "torch": torch.__version__}))
+        if n_cards < 4 or mesh_dry is None:
+            print("dryrun: phase 3k's four-card part did not run: it holds "
+                  "the dry-run to phases 3i and 3j on four cards "
+                  "(python3 chip_smoke.py --require-cards 4 on a host with "
+                  "four)")
+            return
+        proc, path = mesh_dry
+        _, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        if proc.returncode != 0:
+            fail(f"dryrun meshes: exited {proc.returncode}:\n{err[-6000:]}")
+        with open(path) as fh:
+            dry = json.load(fh)
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+        _dryrun_mesh_report(dry, mesh_res, serve_res, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        print("dryrun " + json.dumps({"sub": "phase",
+                                      "seconds": time.perf_counter() - t0}))
+
+
+def _dryrun_mesh_report(dry, mesh_res, serve_res, smi) -> None:
+    """Each 3i mesh's dry-run against rank 0's real NCCL step: the same
+    collectives a kind, argument bytes = the local parameter, optimizer
+    and batch bytes 3i holds, every card's peak within the bound; 3j's
+    full-depth parameter bytes a card."""
+    for row in mesh_res["rows"]:
+        d = dry["meshes"][row["mesh"]]
+        args = row["param_bytes"] + row["opt_bytes"] + row["batch_bytes"]
+        peaks = [c["dryrun_peak_bytes"] for c in row["cards"]]
+        checks = {
+            "counts": d["counts"] == row["comm_counts"],
+            "argument_bytes": d["memory"]["argument_bytes"] == args,
+            "peaks": all(_peak_ok(d["memory"]["peak_bytes"], p)
+                         for p in peaks)}
+        print("dryrun " + json.dumps({
+            "sub": "mesh", "mesh": row["mesh"], "shape": row["shape"],
+            "counts": d["counts"], "counts_on_the_cards": row["comm_counts"],
+            "argument_bytes": d["memory"]["argument_bytes"],
+            "param_opt_batch_bytes": args,
+            "predicted_peak_bytes": d["memory"]["peak_bytes"],
+            "peak_bytes_per_card": peaks,
+            "collective_bytes": d["collectives"]["total_bytes"],
+            "dryrun_s": d["seconds"], "checks": checks, "card": smi}))
+        if not all(checks.values()):
+            fail(f"dryrun mesh {row['mesh']}: {checks}")
+    srv = dry["serve"]
+    row = next(r for r in serve_res["rows"]
+               if r["row"] == srv["row"] and list(r["mesh"]) == srv["mesh"])
+    measured = [c["param_bytes"] for c in row["cards"]]
+    ok = all(m == srv["param_bytes"] for m in measured)
+    print("dryrun " + json.dumps({
+        "sub": "mesh_serve", "row": srv["row"], "mesh": srv["mesh"],
+        "param_bytes": srv["param_bytes"],
+        "param_bytes_per_card": measured,
+        "predicted_peak_bytes": srv["memory"]["peak_bytes"],
+        "peak_bytes_per_card": [c["peak_bytes"] for c in row["cards"]],
+        "counts": srv["counts"], "dryrun_s": srv["seconds"],
+        "checks": {"param_bytes": ok}, "card": smi}))
+    if not ok:
+        fail(f"dryrun mesh serve: {srv['param_bytes']} vs {measured}")
+
+
 def launch_path_main(root: str) -> int:
     """``--launch-path ROOT``: build the kernels of the port under
     ``ROOT/src`` and print its ``launch_path`` line alone — run it once
@@ -3884,7 +4235,7 @@ def launch_path_main(root: str) -> int:
 
 
 def mesh_only_main() -> int:
-    """``--mesh-only``: phase 1's card line and phases 3i and 3j alone
+    """``--mesh-only``: phase 1's card line and phases 3i, 3j and 3k alone
     (two cards or more)."""
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
@@ -3893,8 +4244,11 @@ def mesh_only_main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     print(card_line())
-    mesh_phase(torch, torch.cuda.device_count())
-    mesh_serve_phase(torch, torch.cuda.device_count())
+    n_cards = torch.cuda.device_count()
+    mesh_dry = start_dryrun_mesh() if n_cards >= 4 else None
+    mesh_res = mesh_phase(torch, n_cards)
+    serve_res = mesh_serve_phase(torch, n_cards)
+    dryrun_phase(torch, n_cards, mesh_dry, mesh_res, serve_res)
     return 0
 
 
@@ -3907,6 +4261,10 @@ if __name__ == "__main__":
         sys.exit(mesh_serve_worker_main(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-only"]:
         sys.exit(mesh_only_main())
+    if sys.argv[1:2] == ["--dryrun-worker"]:
+        sys.exit(dryrun_worker_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dryrun-mesh-worker"]:
+        sys.exit(dryrun_mesh_worker_main(sys.argv[2]))
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA "
                                  "port (see the module docstring).")

@@ -15,14 +15,13 @@ semantic definition:
     (optionally a rolling window cache), plain PyTorch as the reference's
     is plain jnp.
 
-On a mesh (DTensor inputs, ``ml.sharding``'s active mesh),
-:func:`chunked_attention` pins the grouped queries and the online-softmax
-state as the reference does: heads over ``model`` when the KV head count
-divides it, else the query sequence, batch over the batch axes.  Without a
-mesh the pins return their inputs.  The kernel path runs
-``kops.flash_attention`` on each rank's pieces through ``local_map``
-(:func:`_attention`), and :func:`split_heads` gathers projection columns
-cut into pieces that are not whole heads.
+On a mesh (DTensor inputs) both paths run on each rank's pieces through
+``local_map`` (:func:`_attention`): the reference path laid out as the
+reference pins its grouped queries — heads over ``model`` when the KV head
+count divides it, else the query sequence, batch over the batch axes
+(:func:`_reference_on_ranks`) —, the kernel path on whole heads; decode
+lays q out for the cache (:func:`_decode_layout`); :func:`split_heads`
+gathers projection columns cut into pieces that are not whole heads.
 
 KV caches: dict(k, v [B, Hkv, Smax, hd], len int).  Rolling caches
 (SWA / local layers) store only ``window`` positions and are written
@@ -39,8 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .layers import dense_init, mrope, rope
-from .sharding import (active_mesh, batch_spec, constrain, is_dtensor,
-                       mesh_sizes, placements)
+from .sharding import (batch_spec, is_dtensor, mesh_sizes, on_pieces,
+                       placements, unflatten_heads)
 
 __all__ = ["attn_init", "attn_apply", "chunked_attention",
            "decode_attention", "cache_update", "init_cache", "AttnSpec"]
@@ -83,13 +82,16 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                       window: Optional[int] = None,
                       softcap: Optional[float] = None,
                       scale: Optional[float] = None,
-                      block_k: int = 1024):
+                      block_k: int = 1024, q_pos0: Optional[int] = None):
     """q [B,Hq,Sq,D], k/v [B,Hkv,Skv,D] → [B,Hq,Sq,D], online softmax.
 
     The reference's ``chunked_attention``: grouped GQA layout [B, Hkv, g,
     Sq, D] (no repeated K/V), KV blocks of ``block_k`` visited in order,
     masks causal with the ``Skv − Sq`` offset, window and softcap, masked
-    logits at −1e30.
+    logits at −1e30.  ``q_pos0`` is the first query's position (default
+    ``Skv − Sq``): a rank holding a slice of the queries passes its own.
+    Plain tensors: on a mesh :func:`_attention` hands each rank's pieces
+    in (:func:`_reference_on_ranks`).
     """
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
@@ -102,18 +104,8 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
     qg = q.reshape(b, hkv, group, sq, d)
-    # pin q and the online-softmax carry (the reference's): heads over
-    # model when they divide it, otherwise the query sequence
-    mesh = active_mesh()
-    n_model = mesh_sizes(mesh).get("model", 1) if mesh is not None else 1
-    if hkv % n_model == 0 and hkv >= n_model:
-        pin = ("batch", "model", None, None, None)
-    elif sq % n_model == 0 and sq >= n_model:
-        pin = ("batch", None, None, "model", None)
-    else:
-        pin = ("batch", None, None, None, None)
-    qg = constrain(qg, pin)
-    q_pos = torch.arange(sq, device=q.device) + (skv - sq)
+    q_pos = torch.arange(sq, device=q.device) \
+        + (skv - sq if q_pos0 is None else q_pos0)
     m = torch.full((b, hkv, group, sq, 1), -1e30, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((b, hkv, group, sq, 1), dtype=torch.float32,
@@ -122,10 +114,10 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                       device=q.device)
     for i in range(nblk):
         k0 = i * bk
-        m, l, acc = (constrain(t, pin) for t in checkpoint(
+        m, l, acc = checkpoint(
             _kv_block, qg, k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk], m, l,
             acc, k0, skv, q_pos, causal=causal, window=window,
-            softcap=softcap, scale=scale, use_reentrant=False))
+            softcap=softcap, scale=scale, use_reentrant=False)
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
@@ -194,18 +186,49 @@ def _attention(q, k, v, *, causal, window, softcap, scale,
         return out.redistribute(mesh, [Replicate() if p.is_partial()
                                        else p for p in q.placements])
     if impl == "reference":
-        if _whole_heads(q, k, v):
-            # each rank holds whole batch rows and whole heads: attention
-            # needs no collective, so each runs it on its own pieces (on
-            # the DTensors, the einsums would flatten two sharded dims,
-            # which DTensor's propagation refuses)
-            from torch.distributed.tensor.experimental import local_map
-            at = list(q.placements)     # a list: one output
-            return local_map(partial(chunked_attention, **kw),
-                             out_placements=at, in_placements=(at, at, at),
-                             device_mesh=q.device_mesh)(q, k, v)
+        if is_dtensor(q):
+            return _reference_on_ranks(q, k, v, **kw)
         return chunked_attention(q, k, v, **kw)
     raise ValueError(f"impl {impl!r}: expected 'kernel' or 'reference'")
+
+
+def _reference_on_ranks(q, k, v, **kw):
+    """:func:`chunked_attention` on a mesh, each rank on its own pieces
+    through ``local_map`` (on the DTensors the grouped reshape would
+    unflatten a cut head dim, and the einsums flatten cut dims, which
+    DTensor refuses or propagates as strided cuts).  The layout is the
+    reference's pin: the batch over the batch axes where it divides; over
+    ``model`` the heads where the KV head count divides it — each rank's
+    q heads grouped with its own KV heads —, else the query sequence —
+    each rank its rows against all keys, from its own first position,
+    its K/V gradients partial over ``model`` —, else nothing.  The output
+    goes back to q's placements (a partial sum comes back whole), as
+    the kernel path's does."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = q.device_mesh
+    placements_of_q = q.placements
+    b, _, sq, _ = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    sizes = mesh_sizes(mesh)
+    n = sizes.get("model", 1)
+    bspec = batch_spec(mesh, b)
+    q_pos0 = None
+    if n > 1 and hkv % n == 0:
+        qs = ks = (bspec, "model")
+    elif n > 1 and sq % n == 0:
+        qs, ks = (bspec, None, "model"), (bspec,)
+        q_pos0 = mesh.get_local_rank("model") * (sq // n) + skv - sq
+    else:
+        qs = ks = (bspec,)
+    qp, kp = list(placements(qs, mesh)), list(placements(ks, mesh))
+    kgrad = kp
+    if q_pos0 is not None:
+        at = list(sizes).index("model")
+        kgrad = [Partial() if i == at else p for i, p in enumerate(kp)]
+    out = on_pieces(partial(chunked_attention, q_pos0=q_pos0, **kw), mesh,
+                    (qp, kp, kp), qp, (qp, kgrad, kgrad))(q, k, v)
+    back = [Replicate() if p.is_partial() else p for p in placements_of_q]
+    return out.redistribute(mesh, back)
 
 
 # --------------------------------------------------------------------------
@@ -238,12 +261,34 @@ def decode_attention(q, cache, *, window: Optional[int] = None,
     k, v = cache["k"], cache["v"]
     fn = partial(_decode, n=cache["len"], window=window, softcap=softcap,
                  rolling=rolling)
+    if is_dtensor(q) and is_dtensor(k):
+        q = _decode_layout(q, k)
     if _whole_heads(q, k, v):
         from torch.distributed.tensor.experimental import local_map
         at = list(q.placements)
         return local_map(fn, out_placements=at, in_placements=(at, at, at),
                          device_mesh=q.device_mesh)(q, k, v)
     return fn(q, k, v)
+
+
+def _decode_layout(q, k):
+    """q [B, Hq, 1, D] laid out for the cache: at the cache's placements
+    where they cut only the batch and the heads (each rank's q heads then
+    group with its own KV heads), else cut only as the cache's batch is
+    (the grouped reshape needs whole q heads; a sequence-cut cache's
+    softmax is summed across its pieces by DTensor), partial sums
+    summed."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = k.device_mesh
+    kp = list(k.placements)
+    heads = math.prod(mesh.size(i) for i, p in enumerate(kp)
+                      if p.is_shard(1))
+    if all(p.is_replicate() or p.dim in (0, 1) for p in kp) \
+            and q.shape[1] % heads == 0:
+        want = kp
+    else:
+        want = [Shard(0) if p.is_shard(0) else Replicate() for p in kp]
+    return q.redistribute(mesh, want)
 
 
 def _decode(q, k, v, *, n, window, softcap, rolling):
@@ -317,21 +362,9 @@ def attn_init(gen: torch.Generator, spec: AttnSpec):
 
 
 def split_heads(t, heads: int, head_dim: int):
-    """[B, S, H·hd] → [B, H, S, hd].  A DTensor whose columns are cut
-    into pieces that are not whole heads (15 heads over 4 ranks) is
-    gathered over the mesh dims that cut them first: DTensor refuses the
-    uneven view, where the reference's GSPMD gathers on its own."""
-    b, s, _ = t.shape
-    if is_dtensor(t):
-        from torch.distributed.tensor import Replicate
-        last = t.dim() - 1
-        n = math.prod(t.device_mesh.size(i) for i, p in
-                      enumerate(t.placements) if p.is_shard(last))
-        if heads % n:
-            t = t.redistribute(t.device_mesh, [
-                Replicate() if p.is_shard(last) else p
-                for p in t.placements])
-    return t.reshape(b, s, heads, head_dim).transpose(1, 2)
+    """[B, S, H·hd] → [B, H, S, hd] (``sharding.unflatten_heads``: a
+    DTensor cut into pieces that are not whole heads is gathered)."""
+    return unflatten_heads(t, heads).transpose(1, 2)
 
 
 def _project_qkv(x, p, spec: AttnSpec, positions):

@@ -9,42 +9,77 @@ them (the reference's ``jax.checkpoint`` a chunk).
 
 Products follow the reference's ``dot_general`` with float32 accumulation:
 the head is rounded to the hidden states' dtype, and the products of two
-such values are summed in float32.
+such values are summed in float32.  On a mesh whose head cuts the vocab,
+the NLL is Megatron's vocab-parallel one, on each rank's vocab slice.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .sharding import is_dtensor
+from .sharding import is_dtensor, on_pieces
 
 __all__ = ["cross_entropy", "chunked_lm_loss"]
 
 
-def _gold(logits, labels):
-    """``logits[..., labels]``.  Where the vocab dim is sharded over a
-    mesh (a DTensor's ``Shard(-1)``, the LM head's model-axis split), a
-    gather cannot pick across the shards — DTensor fails to reduce the
-    masked partial it makes — so each shard sums its own hits
-    (Megatron's vocab-parallel pick) and the shards' sum is the same
-    value: one term is the logit, the others are zeros."""
+def _nll(logits, labels):
+    """logsumexp(logits) − logits[..., labels] over the last dim.  Where
+    the vocab dim is sharded over a mesh (a DTensor's ``Shard(-1)``, the
+    LM head's model-axis split), Megatron's vocab-parallel cross-entropy
+    (:func:`_nll_on_shards`): DTensor's own rules gather the whole logits
+    for the log-sum-exp — the batch's cut too — and cannot reduce the
+    masked partial a gather across the shards makes."""
     last = logits.dim() - 1
     if is_dtensor(logits) and any(
             p.is_shard(last) for p in logits.placements):
-        vocab = torch.arange(logits.shape[-1], device=logits.device)
-        hit = labels.long()[..., None] == vocab
-        return torch.where(hit, logits, torch.zeros_like(logits)).sum(-1)
-    return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return _nll_on_shards(logits, labels)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def _sumexp_pick(logits, m, labels, *, first: int):
+    """On a vocab slice starting at ``first``: Σ exp(logits − m) and each
+    label's logit (0 where the label lies outside the slice)."""
+    vocab = first + torch.arange(logits.shape[-1], device=logits.device)
+    hit = labels.long()[..., None] == vocab
+    gold = torch.where(hit, logits, torch.zeros_like(logits)).sum(-1)
+    return torch.exp(logits - m[..., None]).sum(-1), gold
+
+
+def _nll_on_shards(logits, labels):
+    """The vocab-parallel NLL: each rank's max over its own vocab slice,
+    the max over the slices (an all-reduce of [..]); then each rank's sum
+    of exponentials and its hits, summed over the slices (``on_pieces``:
+    no [.., V] tensor beyond a rank's slice)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    lp = list(logits.placements)
+    (cut,) = [i for i, p in enumerate(lp) if p.is_shard(last)]
+    first = mesh.get_local_rank(cut) * -(-logits.shape[-1]
+                                         // mesh.size(cut))
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in lp]
+
+    def over_slices(op):
+        return [Partial(op) if i == cut else p for i, p in enumerate(rows)]
+
+    m = on_pieces(lambda x: x.detach().amax(dim=-1), mesh, (lp,),
+                  over_slices("max"))(logits).redistribute(mesh, rows)
+    se, gold = on_pieces(partial(_sumexp_pick, first=first), mesh,
+                         (lp, rows, rows),
+                         (over_slices("sum"), over_slices("sum")))(
+        logits, m, labels)
+    se, gold = (t.redistribute(mesh, rows) for t in (se, gold))
+    return m + torch.log(se) - gold
 
 
 def cross_entropy(logits, labels, mask=None):
     """logits [..., V] float32, labels [...] int — mean NLL over mask."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = _gold(logits, labels)
-    nll = logz - gold
+    nll = _nll(logits, labels)
     if mask is None:
         return nll.mean()
     mask = mask.to(nll.dtype)
@@ -52,15 +87,20 @@ def cross_entropy(logits, labels, mask=None):
 
 
 def _logits(hidden, headc):
-    return hidden.float() @ headc.float()
+    """Float32 logits; on a mesh whole sums (a head cut along D, as a tied
+    embedding whose vocab does not divide the model axis is, makes a
+    partial sum, which neither the log-sum-exp nor the pick can take)."""
+    out = hidden.float() @ headc.float()
+    if is_dtensor(out) and any(p.is_partial() for p in out.placements):
+        from torch.distributed.tensor import Replicate
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return out
 
 
 def _chunk_nll(h, headc, labels, mask):
     """Σ masked NLL of one chunk (recomputed in backward)."""
-    logits = _logits(h, headc)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = _gold(logits, labels)
-    return ((logz - gold) * mask.float()).sum()
+    return (_nll(_logits(h, headc), labels) * mask.float()).sum()
 
 
 def chunked_lm_loss(hidden, head, labels, mask=None,

@@ -17,10 +17,10 @@ solve each chunk's diagonal recurrence h_t = a_t ⊙ h_{t-1} + bx_t:
     each chunk under ``torch.utils.checkpoint`` as at the reference's
     ``jax.checkpoint``; it is differentiable.
 
-On a mesh the reference path pins each chunk's carry (batch over the
-batch axes, dI over ``model``) through ``ml.sharding.constrain``; the
-kernel path runs its whole chunk loop on each rank's own dI channels
-through ``local_map`` (one launch a chunk on every rank, no collective).
+On a mesh both paths run their whole chunk loop on each rank's own dI
+channels through ``local_map`` (the batch over the batch axes, dI over
+``model``, as the reference pins the carry; one launch a chunk on every
+rank on the kernel path; no collective).
 
 Decode keeps O(1) state: {h: [B, dI, N], conv: [B, K-1, dI]}, one step in
 plain PyTorch.
@@ -36,8 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops as kops
 from .layers import dense_init, silu
-from .sharding import (batch_spec, constrain, is_dtensor, mesh_sizes,
-                       placements)
+from .sharding import (batch_cut_only, batch_spec, is_dtensor, mesh_sizes,
+                       on_pieces, placements)
 
 #: the dtype the chunk inputs are staged in, the reference's
 STAGE_DTYPE = torch.bfloat16
@@ -86,10 +86,12 @@ def _causal_conv(x, w, b):
 
 
 def _ssm_params(x1, p):
-    """x1 [B, S, dI] → (delta, B_ssm, C_ssm)."""
+    """x1 [B, S, dI] → (delta, B_ssm, C_ssm).  On a mesh the small
+    projection's partial sum over dI is summed whole over the batch's cut
+    (DTensor would scatter it along the sequence)."""
     r = p["dt_proj"].shape[0]
     n = (p["x_proj"].shape[1] - r) // 2
-    x_dbl = x1 @ p["x_proj"].to(x1.dtype)
+    x_dbl = batch_cut_only(x1 @ p["x_proj"].to(x1.dtype))
     dt_raw, b_ssm, c_ssm = torch.split(x_dbl, [r, n, n], dim=-1)
     delta = F.softplus(dt_raw @ p["dt_proj"].to(dt_raw.dtype)
                        + p["dt_bias"].to(dt_raw.dtype))
@@ -138,7 +140,26 @@ def _scan_chunk(h, xc, dc, bc, cc, A):
     a_sc, b_sc = associative_scan(a, bx)
     hs = b_sc + a_sc * h[:, None]
     y = torch.einsum("bcdn,bcn->bcd", hs, cc.float())
-    return constrain(hs[:, -1], ("batch", "model", None)), y
+    return hs[:, -1], y
+
+
+def _reference_scan(dh, x1h, bh, ch, A, *, chunk: int):
+    """The reference path's chunk loop: the last chunk padded with a = 1,
+    bx = 0 (the carry left as is), each chunk under a checkpoint → (y [B,
+    S, dI], final state [B, dI, N])."""
+    b, s, _ = dh.shape
+    pad = (-s) % chunk
+    if pad:
+        x1h, dh, bh, ch = (F.pad(t, (0, 0, 0, pad))
+                           for t in (x1h, dh, bh, ch))
+    h = torch.zeros((b, *A.shape), dtype=torch.float32, device=dh.device)
+    ys = []
+    for c0 in range(0, s + pad, chunk):
+        h, yc = checkpoint(_scan_chunk, h, x1h[:, c0:c0 + chunk],
+                           dh[:, c0:c0 + chunk], bh[:, c0:c0 + chunk],
+                           ch[:, c0:c0 + chunk], A, use_reentrant=False)
+        ys.append(yc)
+    return torch.cat(ys, dim=1)[:, :s], h
 
 
 def _kernel_scan(dh, x1h, bh, ch, A, *, chunk: int):
@@ -163,13 +184,16 @@ def _kernel_scan(dh, x1h, bh, ch, A, *, chunk: int):
     return torch.cat(ys, dim=1), h.view(b, di, n)
 
 
-def _kernel_scan_on_ranks(dh, x1h, bh, ch, A, chunk: int):
-    """:func:`_kernel_scan` on DTensors: each rank runs the whole chunk
-    loop on its own channels through ``local_map`` — dh, x1h, A and the
-    outputs cut over dI on ``model`` (replicated where dI does not divide
-    it), bh and ch whole over dI, the batch over the batch axes where it
-    divides.  The recurrence is per channel, so it needs no collective."""
-    from torch.distributed.tensor.experimental import local_map
+def _scan_on_ranks(scan, dh, x1h, bh, ch, A, chunk: int):
+    """``scan`` (:func:`_kernel_scan` or :func:`_reference_scan`) on
+    DTensors: each rank runs the whole chunk loop on its own channels
+    (``on_pieces``) — dh, x1h, A and the outputs cut over dI on
+    ``model`` (replicated where dI does not divide it), bh and ch whole
+    over dI, the batch over the batch axes where it divides.  The
+    recurrence is per channel, so it needs no collective; the gradients of
+    bh and ch are partial over ``model`` (each rank's channels), A's over
+    the batch axes that cut the batch."""
+    from torch.distributed.tensor import Partial
     mesh = dh.device_mesh
     n_model = mesh_sizes(mesh).get("model", 1)
     bat = batch_spec(mesh, dh.shape[0])
@@ -179,12 +203,14 @@ def _kernel_scan_on_ranks(dh, x1h, bh, ch, A, chunk: int):
     at_rows = list(placements((bat, None, None), mesh))
     at_a = list(placements((chan, None), mesh))
     at_h = list(placements((bat, chan, None), mesh))
-    ins = (at_chan, at_chan, at_rows, at_rows, at_a)
-    return local_map(partial(_kernel_scan, chunk=chunk),
-                     out_placements=(at_chan, at_h), in_placements=ins,
-                     device_mesh=mesh)(
-        *(t.redistribute(mesh, at)
-          for t, at in zip((dh, x1h, bh, ch, A), ins)))
+    g_rows = [Partial() if c.is_shard() and not r.is_shard() else r
+              for r, c in zip(at_rows, at_chan)]
+    g_a = [Partial() if r.is_shard() else a for a, r in zip(at_a, at_rows)]
+    return on_pieces(partial(scan, chunk=chunk), mesh,
+                     (at_chan, at_chan, at_rows, at_rows, at_a),
+                     (at_chan, at_h),
+                     (at_chan, at_chan, g_rows, g_rows, g_a))(
+        dh, x1h, bh, ch, A)
 
 
 def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False,
@@ -213,24 +239,11 @@ def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False,
     bh = b_ssm.to(STAGE_DTYPE)
     ch = c_ssm.to(STAGE_DTYPE)
     c = min(chunk, s)
-    if impl == "reference":
-        ys = []
-        pad = (-s) % c
-        if pad:
-            x1h, dh, bh, ch = (F.pad(t, (0, 0, 0, pad))
-                               for t in (x1h, dh, bh, ch))
-        h = torch.zeros((b, *A.shape), dtype=torch.float32,
-                        device=x.device)
-        for c0 in range(0, s + pad, c):
-            h, yc = checkpoint(_scan_chunk, h, x1h[:, c0:c0 + c],
-                               dh[:, c0:c0 + c], bh[:, c0:c0 + c],
-                               ch[:, c0:c0 + c], A, use_reentrant=False)
-            ys.append(yc)
-        y = torch.cat(ys, dim=1)[:, :s]
-    elif is_dtensor(dh):
-        y, h = _kernel_scan_on_ranks(dh, x1h, bh, ch, A, c)
+    scan = _reference_scan if impl == "reference" else _kernel_scan
+    if is_dtensor(dh):
+        y, h = _scan_on_ranks(scan, dh, x1h, bh, ch, A, c)
     else:
-        y, h = _kernel_scan(dh, x1h, bh, ch, A, chunk=c)
+        y, h = scan(dh, x1h, bh, ch, A, chunk=c)
     y = y + p["D_skip"] * x1
     y = y.to(x.dtype) * silu(z)
     out = y @ p["out_proj"].to(y.dtype)

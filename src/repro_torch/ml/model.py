@@ -32,19 +32,25 @@ kernels, on a mesh on each rank's pieces (``attention._attention``,
 ``mamba.mamba_apply``); the kernels have no backward, so on a mesh the
 train step of a model that reaches them raises their no-backward error
 (on one device the wrappers raise it for CUDA tensors under grad).
-``input_specs`` and the ``lower_*`` methods belong to the dry-run
-(ROADMAP A12b).
+
+The dry-run (``launch.dryrun``): :func:`input_specs` gives every model
+input of an (arch × shape) cell as a meta tensor, and ``lower_train`` /
+``lower_prefill`` / ``lower_decode`` run the bundle's own step once on
+fake tensors, placed by the bundle's shardings, under the dry-run's
+counter → a :class:`Lowered` record (the reference's
+``.lower().compile()`` and its memory and cost analyses).
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from dataclasses import dataclass
-from typing import Optional
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..kernels import _build
 from . import sharding as sh
 from .losses import chunked_lm_loss
@@ -54,7 +60,69 @@ from .optim import (adamw_init, adamw_update, clip_by_global_norm,
 from .sharding import cache_spec_leaf as _cache_spec_leaf
 from .transformer import LM
 
-__all__ = ["ModelBundle", "TrainConfig"]
+__all__ = ["ModelBundle", "TrainConfig", "Lowered", "input_specs"]
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """Meta tensors (shapes and dtypes, no data) for every model input of
+    this cell, with the reference's keys: ``tokens`` (and ``labels`` to
+    train) [B, S] int32, ``tokens`` [B, 1] to decode, an encoder-decoder
+    config's ``frames`` [B, S, D] bf16 unless decoding, M-RoPE
+    ``positions`` [3, B, S] int32 to train."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    out: Dict[str, torch.Tensor] = {}
+    if shape.kind == "train":
+        out["tokens"] = meta(b, s)
+        out["labels"] = meta(b, s)
+    elif shape.kind == "prefill":
+        out["tokens"] = meta(b, s)
+    else:  # decode
+        out["tokens"] = meta(b, 1)
+    if cfg.frontend == "audio_stub" and shape.kind != "decode":
+        out["frames"] = meta(b, s, cfg.d_model, dtype=torch.bfloat16)
+    if cfg.mrope and shape.kind == "train":
+        out["positions"] = meta(3, b, s)
+    return out
+
+
+@dataclass
+class Lowered:
+    """One step of a cell as the dry-run counted it, on one rank (the
+    counterpart of the reference's compiled program and its analyses).
+
+    ``memory``: ``argument_bytes`` (the rank's local parameters,
+    optimizer state, caches and inputs), ``output_bytes`` (the new trees
+    the step returns), ``temp_bytes`` (the peak of live local bytes during
+    the step above the arguments) and ``peak_bytes`` = argument + temp.
+    The reference donates its parameters and optimizer state (or its
+    caches); the port's train step returns new trees and leaves its
+    inputs alone, so the peak is what the port's real step holds: the
+    arguments the caller keeps until the step returns, beside the new
+    trees and every temporary.  (The decode step writes its caches in
+    place, as the reference's donated ones.)
+    ``cost``: ``flops_per_device`` (matrix products) and
+    ``bytes_per_device``.  ``collectives``: ``per_kind`` {kind: count,
+    operand bytes} and ``total_bytes``.  ``analyzed``: the same numbers in
+    ``hlo_analysis.analyze_hlo``'s keys, with ``warnings``.  ``seconds``:
+    the host time of the fake step."""
+    kind: str
+    memory: Dict
+    cost: Dict
+    collectives: Dict
+    analyzed: Dict
+    seconds: float = 0.0
+    counts: Dict = field(default_factory=dict)
+
+    @property
+    def record(self) -> Dict:
+        """The record's ``memory``, ``cost``, ``analyzed`` and
+        ``collectives`` entries."""
+        return {"memory": self.memory, "cost": self.cost,
+                "analyzed": self.analyzed, "collectives": self.collectives}
 
 
 @dataclass
@@ -213,10 +281,11 @@ class ModelBundle:
         return self.mesh, sh.placements(tuple(axes), self.mesh)
 
     @staticmethod
-    def _place(tree, shardings):
+    def _place(tree, shardings, src_data_rank: Optional[int] = 0):
         """Each leaf of ``tree`` at its (mesh, placements): a plain tensor
-        distributed, a DTensor redistributed; a None sharding leaves the
-        leaf as it is."""
+        distributed (from rank ``src_data_rank``; None: each rank cuts its
+        own piece of its own copy, no collective), a DTensor
+        redistributed; a None sharding leaves the leaf as it is."""
         from torch.distributed.tensor import distribute_tensor
 
         def one(_, t, s):
@@ -224,23 +293,24 @@ class ModelBundle:
                 return t
             if sh.is_dtensor(t):
                 return t.redistribute(*s)
-            return distribute_tensor(t, *s)
+            return distribute_tensor(t, *s, src_data_rank=src_data_rank)
 
         return sh.map_with_path(one, tree, shardings)
 
-    def shard_params(self, params):
-        return self._place(params, self.param_shardings())
+    def shard_params(self, params, src_data_rank: Optional[int] = 0):
+        return self._place(params, self.param_shardings(), src_data_rank)
 
-    def shard_opt_state(self, opt_state):
-        return self._place(opt_state, self.opt_state_shardings())
+    def shard_opt_state(self, opt_state, src_data_rank: Optional[int] = 0):
+        return self._place(opt_state, self.opt_state_shardings(),
+                           src_data_rank)
 
-    def shard_batch(self, batch):
+    def shard_batch(self, batch, src_data_rank: Optional[int] = 0):
         """A batch of plain tensors (the same on every rank) → DTensors,
         the batch dim over the batch axes (dim 1 of M-RoPE
         ``positions``)."""
         return {k: self._place(v, self._data_sharding(
             v.dim(), 1 if k == "positions" else 0,
-            batch_size=v.shape[1 if k == "positions" else 0]))
+            batch_size=v.shape[1 if k == "positions" else 0]), src_data_rank)
             for k, v in batch.items()}
 
     def _gather(self, path, tree):
@@ -368,7 +438,86 @@ class ModelBundle:
         def serve_step(params, caches, tokens, pos):
             with self._on_mesh():
                 logits, caches = lm.decode_step(params, tokens, caches, pos)
-                next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                # the vocab whole on each rank: DTensor's argmax over a
+                # cut dim reads a value on the host
+                next_tok = torch.argmax(sh.batch_cut_only(logits),
+                                        dim=-1).to(torch.int32)
             return next_tok, caches
 
         return serve_step
+
+    # ----------------------------------------------------------- dry-run
+    def lower_train(self, shape: ShapeConfig, **kw) -> Lowered:
+        """One ``make_train_step`` step of the ``shape`` cell on fake
+        tensors (parameters, ``init_opt_state``, ``input_specs``' batch,
+        placed by the bundle's shardings) under the dry-run's counter."""
+        return self._lower("train", shape, **kw)
+
+    def lower_prefill(self, shape: ShapeConfig, **kw) -> Lowered:
+        """One ``make_prefill`` call of the ``shape`` cell on fake
+        tensors."""
+        return self._lower("prefill", shape, **kw)
+
+    def lower_decode(self, shape: ShapeConfig, **kw) -> Lowered:
+        """One ``make_decode_step`` token against ``init_caches(B,
+        seq_len)`` (cross K/V for ``seq_len`` encoder positions), at the
+        cache's last position, on fake tensors."""
+        return self._lower("decode", shape, **kw)
+
+    def fake_args(self, kind: str, shape: ShapeConfig, seed: int = 0):
+        """The step's arguments for a ``shape`` cell (fake tensors under
+        a ``FakeTensorMode``), placed as a real step's are: ``(params,
+        opt_state, batch)``, ``(params, batch)`` or ``(params, caches,
+        tokens, pos)``.  The train step's parameters are
+        ``init_params``' (float32, cast as ``param_dtype`` says), the
+        serving steps' the LM's storage dtypes (``LM.init``: what
+        ``launch.serve.Server`` and a mesh serve; the reference casts
+        both as ``param_dtype`` says).  Without a mesh they lie on the
+        CPU (the dry-run touches no card); on a mesh on its device type.
+        Each rank cuts its own pieces (no collective)."""
+        dev = "cpu" if self.mesh is None else self.device
+        params = self._cast_params(self.lm.init(
+            seed, dev, dtype=torch.float32)) if kind == "train" \
+            else self.lm.init(seed, dev)
+        batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                 for k, v in input_specs(self.cfg, shape).items()}
+        mesh = self.mesh is not None
+        if kind == "train":
+            opt = self.init_opt_state(params)
+            if mesh:
+                params = self.shard_params(params, None)
+                opt = self.shard_opt_state(opt, None)
+                batch = self.shard_batch(batch, None)
+            return params, opt, batch
+        if mesh:
+            params = self.shard_params(params, None)
+            batch = self.shard_batch(batch, None)
+        if kind == "prefill":
+            return params, batch
+        enc_len = shape.seq_len if self.cfg.encoder_layers > 0 else None
+        caches = self.lm.init_caches(shape.global_batch, shape.seq_len,
+                                     dev, enc_len=enc_len)
+        return params, caches, batch["tokens"], shape.seq_len - 1
+
+    def _lower(self, kind: str, shape: ShapeConfig, *, seed: int = 0,
+               alltoall_as_nccl: bool = True) -> Lowered:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from ..launch.dryrun import StepCounter
+        if kind != shape.kind:
+            raise ValueError(f"lower_{kind} of a {shape.kind} shape "
+                             f"({shape.name})")
+        fn = {"train": self.make_train_step, "prefill": self.make_prefill,
+              "decode": self.make_decode_step}[kind]()
+        with FakeTensorMode():
+            args = self.fake_args(kind, shape, seed)
+            counter = StepCounter(alltoall_as_nccl=alltoall_as_nccl)
+            t0 = time.perf_counter()
+            with counter:
+                counter.hold(args)
+                out = fn(*args)
+                counter.finish(out)
+            seconds = time.perf_counter() - t0
+        rec = counter.record()
+        return Lowered(kind=kind, seconds=seconds, counts=counter.counts(),
+                       **rec)

@@ -39,13 +39,16 @@ import sys
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["MeshShape", "mesh_sizes", "batch_axes", "batch_spec",
            "param_specs",
            "act_spec", "cache_specs", "NONE_SPEC", "zero1_specs",
            "extend_specs", "constrain", "active_mesh", "set_active_mesh",
            "using_mesh", "placements", "leaf_items", "map_with_path",
-           "spec_divisor", "cache_spec_leaf", "place_caches", "is_dtensor"]
+           "spec_divisor", "cache_spec_leaf", "place_caches", "is_dtensor",
+           "unflatten_heads", "merge_heads", "batch_cut_only", "canonical",
+           "on_pieces"]
 
 NONE_SPEC: Tuple = ()
 
@@ -320,6 +323,114 @@ def cache_spec_leaf(path, leaf, mesh) -> Tuple:
     if nd >= 2:                                     # slstm scalars [G,B,D]
         return (None, bspec)
     return ()
+
+
+def unflatten_heads(t, heads: int):
+    """``t`` [..., H·hd] → [..., H, hd].  A DTensor whose last dim is cut
+    into pieces that are not whole heads (15 heads over 4 ranks, 4 over
+    16) is gathered over the mesh dims that cut it first: DTensor refuses
+    the uneven view, where the reference's GSPMD gathers on its own."""
+    *lead, last = t.shape
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+        d = t.dim() - 1
+        n = math.prod(t.device_mesh.size(i) for i, p in
+                      enumerate(t.placements) if p.is_shard(d))
+        if heads % n:
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if p.is_shard(d) else p for p in t.placements])
+    return t.reshape(*lead, heads, last // heads)
+
+
+def batch_cut_only(t):
+    """A DTensor with every cut but its batch dim's (dim 0) gathered and
+    partial sums summed; a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [
+        p if p.is_shard(0) else Replicate() for p in t.placements])
+
+
+def canonical(t):
+    """``t`` contiguous with the strides ``torch.empty`` gives its shape.
+    A rank's piece handed to DTensor (``local_map``'s outputs and input
+    gradients) sets the DTensor's global strides, and DTensor views by
+    those later: a piece with other strides (a permuted product, a
+    contiguous tensor's size-1 dim) makes such a view fail."""
+    want, acc = [], 1
+    for n in reversed(t.shape):
+        want.append(acc)
+        acc *= max(n, 1)
+    want = tuple(reversed(want))
+    if t.stride() == want:
+        return t
+    if t.is_contiguous():
+        return t.as_strided(t.shape, want, t.storage_offset())
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class _CanonicalGrad(torch.autograd.Function):
+    """The identity, whose gradient is made :func:`canonical`."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return canonical(g)
+
+
+def on_pieces(fn, mesh, in_placements, out_placements,
+              in_grad_placements=None):
+    """``fn`` run by each rank on its own pieces (``local_map``): the
+    DTensor arguments brought to ``in_placements`` first (one list a
+    argument), the outputs at ``out_placements`` (a list for one output,
+    a tuple of lists for several), the arguments' gradients at
+    ``in_grad_placements`` (default: ``in_placements``) — what the pieces'
+    gradients are, e.g. a partial sum over the mesh dims whose ranks saw
+    only some of the rows that touched a whole weight.  The outputs and
+    the arguments' gradients are made :func:`canonical`."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def run(*pieces):
+        out = fn(*(_CanonicalGrad.apply(t) if t.requires_grad else t
+                   for t in pieces))
+        if isinstance(out, tuple):
+            return tuple(canonical(t) for t in out)
+        return canonical(out)
+
+    mapped = local_map(run, out_placements=out_placements,
+                       in_placements=tuple(in_placements),
+                       in_grad_placements=tuple(in_grad_placements
+                                                or in_placements),
+                       device_mesh=mesh)
+    return lambda *args: mapped(*(
+        a.redistribute(mesh, list(p)) if is_dtensor(a) else a
+        for a, p in zip(args, in_placements)))
+
+
+def merge_heads(t):
+    """``t`` [..., H, hd] → [..., H·hd], the inverse of
+    :func:`unflatten_heads` both ways: the gradient, which a row-parallel
+    product hands back cut along H·hd, is split into heads by
+    :func:`unflatten_heads` (gathered where its pieces are not whole
+    heads)."""
+    if not is_dtensor(t):
+        return t.reshape(*t.shape[:-2], -1)
+    return _MergeHeads.apply(t)
+
+
+class _MergeHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.heads = x.shape[-2]
+        return x.reshape(*x.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflatten_heads(g, ctx.heads)
 
 
 def place_caches(caches, mesh):

@@ -231,10 +231,20 @@ def _positions_for(cfg: ArchConfig, b: int, s: int, offset: int = 0,
     return pos
 
 
+def _whole_seq(h):
+    """A block's normed input with its sequence whole on every rank (the
+    batch over the batch axes): DTensor may sum a partial residual into a
+    sequence cut over ``model``, and a product over [B, S] flattened with
+    S cut is a strided cut that its propagation cannot always follow.
+    Megatron's all-gather before the column-parallel products; a plain
+    tensor as it is."""
+    return constrain(h, ("batch", None, None))
+
+
 def _mlp_tail(cfg: ArchConfig, x, p):
     if "mlp" not in p and "moe" not in p:
         return x, None
-    h2 = _norm(cfg)(x, p["norm2"], cfg.norm_eps)
+    h2 = _whole_seq(_norm(cfg)(x, p["norm2"], cfg.norm_eps))
     if "moe" in p:
         mo, aux = moe_apply(h2, p["moe"], top_k=cfg.moe_top_k,
                             capacity_factor=cfg.moe_capacity_factor,
@@ -264,7 +274,7 @@ def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
     kind, spec, _, _ = _slot_info(cfg, slot, decoder=decoder)
     nrm = _norm(cfg)
     in_dtype = x.dtype
-    h = nrm(x, p["norm1"], cfg.norm_eps)
+    h = _whole_seq(nrm(x, p["norm1"], cfg.norm_eps))
     extras = None
     if kind == "attn":
         rope_pos = positions if cfg.pos == "rope" else None
@@ -276,7 +286,7 @@ def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
         x = x + out @ p["attn"]["wo"].to(out.dtype)
         extras = {"k": k, "v": v}
         if enc_out is not None and "xattn" in p:
-            hx = nrm(x, p["normx"], cfg.norm_eps)
+            hx = _whole_seq(nrm(x, p["normx"], cfg.norm_eps))
             qx, _, _ = A._project_qkv(hx, p["xattn"], spec, None)
             kx, vx = _project_cross_kv(enc_out, p["xattn"], spec)
             xo = A._attention(qx, kx, vx, causal=False, window=None,
@@ -504,7 +514,9 @@ class LM:
         x = _norm(cfg)(x, self._use(("final_norm",), p["final_norm"]),
                        cfg.norm_eps)
         # the head's product takes whole sequences, as each block's does
-        return self._seq_gather(x), {"load_balance": lb, "router_z": rz}
+        # (with or without sequence parallelism: a residual's partial sum
+        # may have been scattered along them)
+        return _whole_seq(x), {"load_balance": lb, "router_z": rz}
 
     def apply(self, p, tokens, positions=None, frames=None):
         """Forward → (logits [B,S,V] float32, aux dict)."""
@@ -528,8 +540,9 @@ class LM:
             blk = self._use(("enc_blocks",), _index(p["enc_blocks"], e))
             x, _, _ = _block_apply(cfg, 0, x, blk, positions,
                                    impl=self.impl, decoder=False)
-        return _norm(cfg)(x, self._use(("enc_norm",), p["enc_norm"]),
-                          cfg.norm_eps)
+        return _whole_seq(_norm(cfg)(x, self._use(("enc_norm",),
+                                                  p["enc_norm"]),
+                                     cfg.norm_eps))
 
     # ---------------------------------------------------------- serving
     def init_caches(self, batch: int, max_len: int, device="cuda",

@@ -21,9 +21,10 @@ the whole sequence, in float32.  A gated pf=4/3 MLP follows.
 
 The reference's ``REPRO_SSM_CHUNK`` is ``mlstm_apply``'s ``chunk``
 argument here (256 by default), as in ``ml/mamba.py``.  On a mesh the
-mLSTM carry (C, n) is pinned after each chunk, as the reference pins it
-(``ml.sharding.constrain``: batch over the batch axes, the value dim over
-``model``).
+mLSTM chunks run on each rank's pieces through ``local_map`` (the batch
+over the batch axes, the heads over ``model`` where they divide it, else
+every head on every rank of it), and the sLSTM loop and its output MLP on
+each rank's batch rows, whole along D.
 """
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .layers import dense_init, silu
-from .sharding import constrain
+from .sharding import (batch_cut_only, batch_spec, constrain, is_dtensor,
+                       merge_heads, mesh_sizes, on_pieces, placements,
+                       unflatten_heads)
 
 __all__ = ["mlstm_init", "mlstm_apply", "mlstm_decode", "mlstm_cache_init",
            "slstm_init", "slstm_apply", "slstm_decode", "slstm_cache_init"]
@@ -85,17 +88,30 @@ def mlstm_init(gen: torch.Generator, d: int, num_heads: int, *,
 
 
 def _headwise_proj(u, w, num_heads: int):
-    """u [B, S, dI] × w [H, dh, dh] → [B, H, S, dh]."""
-    b, s, di = u.shape
-    uh = u.reshape(b, s, num_heads, di // num_heads)
+    """u [B, S, dI] × w [H, dh, dh] → [B, H, S, dh].  A DTensor ``u``
+    whose dI is cut into pieces that are not whole heads (4 heads over a
+    model axis of 16) is gathered along dI (``unflatten_heads``); ``w``'s
+    own cut (its output dh over ``model``) still splits the product."""
+    uh = unflatten_heads(u, num_heads)
     return torch.einsum("bshd,hde->bhse", uh, w.to(u.dtype))
 
 
+def _logsigmoid(x):
+    """``F.logsigmoid``; on a DTensor (no partial sum) each rank on its
+    own piece (DTensor has no sharding rule for it)."""
+    if not is_dtensor(x):
+        return F.logsigmoid(x)
+    at = list(x.placements)
+    return on_pieces(F.logsigmoid, x.device_mesh, (at,), at)(x)
+
+
 def _mlstm_gates(u, p):
-    """u [B, S, dI] → log_f, log_i [B, S, H] (stabilised), in float32."""
-    f_raw = u.float() @ p["wf"].float()
-    i_raw = u.float() @ p["wi"].float()
-    return F.logsigmoid(f_raw), torch.clamp(i_raw, -_I_CLIP, _I_CLIP)
+    """u [B, S, dI] → log_f, log_i [B, S, H] (stabilised), in float32.
+    On a mesh the raw gates are summed whole over the batch's cut (a
+    partial sum would be scattered along the sequence by the clamp)."""
+    f_raw = batch_cut_only(u.float() @ p["wf"].float())
+    i_raw = batch_cut_only(u.float() @ p["wi"].float())
+    return _logsigmoid(f_raw), torch.clamp(i_raw, -_I_CLIP, _I_CLIP)
 
 
 def _mlstm_qkv(u, p, num_heads: int):
@@ -136,10 +152,47 @@ def _mlstm_chunk(C, n, qq, kk, vv, lf, li):
     C_new = f_end[..., None, None] * C + torch.einsum("bhsd,bhse->bhde",
                                                       ki, vv)
     n_new = f_end[..., None] * n + ki.sum(dim=2)
-    # pin the carry: batch over the batch axes, the value dim over model
-    C_new = constrain(C_new, ("batch", None, None, "model"))
-    n_new = constrain(n_new, ("batch", None, "model"))
     return C_new, n_new, h
+
+
+def _mlstm_scan(q, k, v, log_f, log_i, *, chunk: int):
+    """The chunks in order from a zero carry: q, k, v [B, H, S, dh] and
+    log gates [B, H, S] → (h [B, H, S, dh], C [B, H, dh, dh], n [B, H,
+    dh]) after position S."""
+    b, nh, s, dh = q.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        log_f = F.pad(log_f, (0, pad))
+        log_i = F.pad(log_i, (0, pad), value=-_I_CLIP)
+    C = torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=q.device)
+    n = torch.zeros((b, nh, dh), dtype=torch.float32, device=q.device)
+    hs = []
+    for c0 in range(0, s + pad, c):
+        cs = slice(c0, c0 + c)
+        C, n, h = _maybe_checkpoint(_mlstm_chunk, C, n, q[:, :, cs],
+                                    k[:, :, cs], v[:, :, cs],
+                                    log_f[:, :, cs], log_i[:, :, cs])
+        hs.append(h)
+    return torch.cat(hs, dim=2)[:, :, :s], C, n
+
+
+def _mlstm_scan_on_ranks(q, k, v, log_f, log_i, *, chunk: int):
+    """:func:`_mlstm_scan`; on a mesh each rank scans its own pieces
+    (``on_pieces``): the batch over the batch axes, the heads over
+    ``model`` where their count divides it, else every head on every rank
+    of ``model`` (a chunk contracts whole heads' dh; on the DTensors its
+    einsums flatten cut dims, which DTensor refuses or propagates as
+    strided cuts)."""
+    if not is_dtensor(q):
+        return _mlstm_scan(q, k, v, log_f, log_i, chunk=chunk)
+    mesh = q.device_mesh
+    n_model = mesh_sizes(mesh).get("model", 1)
+    heads = "model" if n_model > 1 and q.shape[1] % n_model == 0 else None
+    at = list(placements((batch_spec(mesh, q.shape[0]), heads), mesh))
+    return on_pieces(partial(_mlstm_scan, chunk=chunk), mesh, (at,) * 5,
+                     (at,) * 3)(q, k, v, log_f, log_i)
 
 
 def mlstm_apply(x, p, num_heads: int, *, chunk: int = 256,
@@ -153,28 +206,11 @@ def mlstm_apply(x, p, num_heads: int, *, chunk: int = 256,
     b, s, _ = x.shape
     u = silu(x @ p["w_upA"].to(x.dtype))
     og = silu(x @ p["w_upB"].to(x.dtype))
-    di = u.shape[-1]
-    dh = di // num_heads
     q, k, v, log_f, log_i = _mlstm_qkv(u, p, num_heads)
-    c = min(chunk, s)
-    pad = (-s) % c
-    if pad:
-        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
-        log_f = F.pad(log_f, (0, pad))
-        log_i = F.pad(log_i, (0, pad), value=-_I_CLIP)
-    C = torch.zeros((b, num_heads, dh, dh), dtype=torch.float32,
-                    device=x.device)
-    n = torch.zeros((b, num_heads, dh), dtype=torch.float32,
-                    device=x.device)
-    hs = []
-    for c0 in range(0, s + pad, c):
-        cs = slice(c0, c0 + c)
-        C, n, h = _maybe_checkpoint(_mlstm_chunk, C, n, q[:, :, cs],
-                                    k[:, :, cs], v[:, :, cs],
-                                    log_f[:, :, cs], log_i[:, :, cs])
-        hs.append(h)
-    h = torch.cat(hs, dim=2)[:, :, :s]
-    h = h.transpose(1, 2).reshape(b, s, di).to(x.dtype)
+    h, C, n = _mlstm_scan_on_ranks(q, k, v, log_f, log_i, chunk=chunk)
+    # on a mesh: dI over model as og's
+    h = constrain(merge_heads(h.transpose(1, 2)).to(x.dtype),
+                  ("batch", None, "model"))
     out = (h * og) @ p["out_proj"].to(h.dtype)
     if return_state:
         return out, {"C": C, "n": n}
@@ -191,10 +227,8 @@ def mlstm_cache_init(batch: int, d: int, num_heads: int, pf: int = 2,
 
 def mlstm_decode(x, p, num_heads: int, cache):
     """x [B, 1, D] → (y [B, 1, D], new cache) — the O(1) recurrence."""
-    b = x.shape[0]
     u = silu(x[:, 0] @ p["w_upA"].to(x.dtype))
     og = silu(x[:, 0] @ p["w_upB"].to(x.dtype))
-    di = u.shape[-1]
     q, k, v, log_f, log_i = _mlstm_qkv(u[:, None], p, num_heads)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]      # [B, H, dh]
     f = torch.exp(log_f[..., 0])[..., None]           # [B, H, 1]
@@ -205,7 +239,7 @@ def mlstm_decode(x, p, num_heads: int, cache):
     num = torch.einsum("bhd,bhde->bhe", q, C)
     denom = torch.clamp(torch.abs(torch.einsum("bhd,bhd->bh", q, n))[
         ..., None], min=1.0)
-    h = (num / denom).reshape(b, di).to(x.dtype)
+    h = merge_heads(num / denom).to(x.dtype)
     return ((h * og) @ p["out_proj"].to(h.dtype))[:, None], {"C": C, "n": n}
 
 
@@ -233,11 +267,10 @@ def slstm_init(gen: torch.Generator, d: int, num_heads: int):
 def _slstm_step(p, num_heads: int, c, n, h, m, xi, xf, xz, xo):
     """One time step: state (c, n, h, m) and the step's input projections
     (xi, xf, xz, xo), each [B, D] float32 → (c', n', h', m')."""
-    b, d = xi.shape
-    hh = h.reshape(b, num_heads, d // num_heads)
+    hh = unflatten_heads(h, num_heads)
 
     def rec(r):
-        return torch.einsum("bhd,hde->bhe", hh, r.float()).reshape(b, d)
+        return merge_heads(torch.einsum("bhd,hde->bhe", hh, r.float()))
 
     hi = xi + rec(p["ri"]) + p["bi"]
     hf = xf + rec(p["rf"]) + p["bf"]
@@ -260,13 +293,32 @@ def _slstm_inputs(x, p):
     return [xf32 @ p[f"w{g}"].float() for g in _GATES]
 
 
-def _slstm_out(h, p):
-    """The output projection and the gated pf=4/3 MLP on it."""
-    out = h @ p["out_proj"].to(h.dtype)
-    mlp = p["mlp"]
+def _slstm_out_local(h, out_proj, w_gate, w_up, w_down):
+    out = h @ out_proj.to(h.dtype)
     dt = out.dtype
-    return out + (silu(out @ mlp["w_gate"].to(dt))
-                  * (out @ mlp["w_up"].to(dt))) @ mlp["w_down"].to(dt)
+    return out + (silu(out @ w_gate.to(dt)) * (out @ w_up.to(dt))) \
+        @ w_down.to(dt)
+
+
+def _slstm_out(h, p):
+    """The output projection and the gated pf=4/3 MLP on it.  On a mesh
+    each rank runs it whole on its own batch rows (``on_pieces``, the
+    weights gathered: the MLP's 4/3·D rarely divides the model axis, and
+    a partial sum between its products would be scattered along the
+    sequence), the weights' gradients partial over the batch axes that
+    cut h."""
+    ws = (p["out_proj"], p["mlp"]["w_gate"], p["mlp"]["w_up"],
+          p["mlp"]["w_down"])
+    if not is_dtensor(h):
+        return _slstm_out_local(h, *ws)
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = h.device_mesh
+    h = batch_cut_only(h)
+    at = list(h.placements)
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if x.is_shard(0) else Replicate() for x in at]
+    return on_pieces(_slstm_out_local, mesh, (at, *[whole] * 4), at,
+                     (at, *[grad] * 4))(h, *ws)
 
 
 def _state(st):
@@ -276,7 +328,11 @@ def _state(st):
 def slstm_apply(x, p, num_heads: int, *, return_state: bool = False):
     """x [B, S, D] → [B, S, D] (sequential over time)."""
     b, s, d = x.shape
-    xw = _slstm_inputs(x, p)
+    # on a mesh the time loop's [B, D] state and inputs are whole along D
+    # on every rank (only the batch cut): a step splits D into heads, and
+    # a cut D's gradients would come back cut into pieces that are not
+    # whole heads
+    xw = [batch_cut_only(w) for w in _slstm_inputs(x, p)]
     z0 = torch.zeros((b, d), dtype=torch.float32, device=x.device)
     st = (z0, z0, z0, z0)
     hs = []

@@ -471,6 +471,123 @@ def check_kernel_serving(res):
     res["kernel_serving"] = out
 
 
+#: (case, arch, mesh, ArchConfig fields) of the production mesh's uneven
+#: cuts at a small size: q heads that divide the model axis over KV heads
+#: that do not; xLSTM heads that do not divide it (one block cycle);
+#: Whisper's encoder, decoder and cross attention; experts that do not
+#: divide the model axis (TP experts), their groups cut over data
+UNEVEN_HEADS = [("qwen1_5_0_5b_8_2:1x4", "qwen1_5_0_5b", (1, 4),
+                 {"num_heads": 8, "num_kv_heads": 2}),
+                ("xlstm_1_3b_2:1x4", "xlstm_1_3b", (1, 4),
+                 {"num_heads": 2, "num_kv_heads": 2, "num_layers": 8}),
+                ("whisper_large_v3:1x4", "whisper_large_v3", (1, 4), {}),
+                ("mixtral_8x7b_3e:2x2", "mixtral_8x7b", (2, 2),
+                 {"moe_experts": 3, "moe_group_size": 16})]
+UNEVEN_SHAPE = (4, 16)
+
+
+def check_uneven_heads(res):
+    """Each case's loss and gradients, a prefill and a decode step on its
+    mesh (``impl="reference"``, remat full) against one device, float32
+    activations; a case that raises records its error."""
+    out = {}
+    for key, arch, shape, fields in UNEVEN_HEADS:
+        cfg = replace(_cfg(arch), **fields)
+        b, s = UNEVEN_SHAPE
+        batch = {k: v[:b, :s] for k, v in _batch(cfg).items()}
+        if cfg.encoder_layers:
+            batch["frames"] = _kernel_batch(cfg)["frames"][:b]
+        tc = TrainConfig(remat="full", loss_chunk=None)
+        t0 = time.perf_counter()
+        try:
+            one = ModelBundle(cfg, train_cfg=tc, device=DEVICE)
+            p0 = one.init_params(0)
+            mb = ModelBundle(cfg, _mesh(*shape), train_cfg=tc)
+            params, sbatch = mb.shard_params(p0), mb.shard_batch(batch)
+            _, l0, _, g0 = one.loss_and_grads(p0, batch)
+            _, l1, _, g1 = mb.loss_and_grads(params, sbatch)
+            pairs = [(_full(a), b_) for a, b_ in zip(tree_leaves(g1),
+                                                     tree_leaves(g0))]
+            serve = {k: v for k, v in batch.items() if k != "labels"}
+            with torch.no_grad():
+                lg0, c0 = one.make_prefill()(p0, serve)
+                lg1, c1 = mb.make_prefill()(params, mb.shard_batch(serve))
+                nt0 = torch.argmax(lg0, -1).to(torch.int32)
+                t1_one, _ = one.make_decode_step()(p0, c0, nt0, s)
+                t1, _ = mb.make_decode_step()(
+                    params, c1, mb.shard_batch({"tokens": nt0})["tokens"], s)
+            out[key] = {
+                "loss_one": float(l0), "loss_mesh": float(_full(l1)),
+                "gnorm_one": float(torch.sqrt(sum((b_ * b_).sum()
+                                                  for _, b_ in pairs))),
+                "gnorm_mesh": float(torch.sqrt(sum((a * a).sum()
+                                                   for a, _ in pairs))),
+                "grad_max_rel": max(float((a - b_).abs().max()
+                                          / (b_.abs().max() + 1e-30))
+                                    for a, b_ in pairs),
+                "prefill_max_abs": float((_full(lg1) - lg0).abs().max()),
+                "same_tokens": bool(torch.equal(_full(t1), t1_one)),
+                "error": None}
+        except Exception as e:          # every rank raises alike
+            out[key] = {"error": f"{type(e).__name__}: {e}"[:500]}
+        out[key]["seconds"] = time.perf_counter() - t0
+    res["uneven_heads"] = out
+
+
+#: (name, mesh, TrainConfig fields) of the steps the dry-run is held to
+DRYRUN_STEPS = [("zero1", (4, 1), {"zero1": True}),
+                ("fsdp", (4, 1), {"fsdp": True}),
+                ("2x2", (2, 2), {})]
+
+
+def dryrun_train_config(**kw):
+    """The train config of the steps the dry-run is held to."""
+    return TrainConfig(remat="none", loss_chunk=None, warmup=1,
+                       total_steps=4, **kw)
+
+
+def comm_kinds(counts):
+    """``CommDebugMode.get_comm_counts()`` → {kind: count} by the dry-run's
+    kind names (the funcol ops and DTensor's all-to-all)."""
+    from repro_torch.launch.dryrun import collective_kind
+    out = {}
+    for op, n in counts.items():
+        kind = collective_kind(op)
+        if kind is not None and n:
+            out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def _storage_bytes(tree):
+    seen = {}
+    for t in tree_leaves(tree):
+        st = (t.to_local() if hasattr(t, "to_local") else t).untyped_storage()
+        seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+def check_dryrun_steps(res):
+    """A reduced Qwen's train step for real on each of DRYRUN_STEPS'
+    meshes under ``CommDebugMode``: rank 0's collectives by kind and its
+    local argument bytes (parameters, optimizer state, batch), which the
+    test file holds to the dry-run of the same mesh on a fake group."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    cfg = _cfg("qwen1_5_0_5b")
+    out = {}
+    for name, shape, kw in DRYRUN_STEPS:
+        mb = ModelBundle(cfg, _mesh(*shape),
+                         train_cfg=dryrun_train_config(**kw))
+        p = mb.init_params(0)
+        args = (mb.shard_params(p), mb.shard_opt_state(mb.init_opt_state(p)),
+                mb.shard_batch(_batch(cfg)))
+        comm = CommDebugMode()
+        with comm:
+            mb.make_train_step()(*args)
+        out[name] = {"counts": comm_kinds(comm.get_comm_counts()),
+                     "argument_bytes": _storage_bytes(args)}
+    res["dryrun_steps"] = out
+
+
 def check_psum(res):
     """``compressed_psum`` over the whole group and over the data dim of
     a 2×2 mesh: the result, the group's ranks (each rank's input is drawn
@@ -572,7 +689,8 @@ def check_train_loop(res, tmp):
 
 
 CHECKS = [check_local_meshes, check_placements, check_steps,
-          check_jamba_step, check_serving, check_kernel_serving, check_psum,
+          check_jamba_step, check_serving, check_kernel_serving,
+          check_uneven_heads, check_dryrun_steps, check_psum,
           check_reshard, check_elastic_restore, check_train_loop]
 CUDA_CHECKS = [check_steps, check_kernel_serving, check_psum,
                check_elastic_restore]

@@ -341,6 +341,79 @@ def test_one_device_kernel_prefill_matches_interpret(arch):
                 2e-3 * np.abs(want).max(), t
 
 
+# ------------------------------------------------ uneven cuts and dry-run
+
+UNEVEN_CASES = ["qwen1_5_0_5b_8_2:1x4", "xlstm_1_3b_2:1x4",
+                "whisper_large_v3:1x4", "mixtral_8x7b_3e:2x2"]
+DRYRUN_STEPS = ["zero1", "fsdp", "2x2"]
+_DRYRUN_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, "tests")
+import _torch_mesh_worker as w
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.dryrun import fake_world
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.ml.model import ModelBundle
+out = {}
+with fake_world(4):
+    for name, shape, kw in w.DRYRUN_STEPS:
+        mb = ModelBundle(w._cfg("qwen1_5_0_5b"),
+                         make_local_mesh(*shape, device="cpu"),
+                         train_cfg=w.dryrun_train_config(**kw))
+        low = mb.lower_train(ShapeConfig("t", w.SEQ, w.BATCH, "train"),
+                             alltoall_as_nccl=False)
+        out[name] = {"counts": low.counts,
+                     "argument_bytes": low.memory["argument_bytes"]}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def dryrun_steps():
+    """The dry-run of DRYRUN_STEPS' meshes on a fake 4-rank group, in a
+    process of its own; a CPU mesh's all-to-all counted as the gloo group
+    runs it (all-gather + chunk), as the real steps ran."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _DRYRUN_SCRIPT], env=env,
+                         cwd=root, capture_output=True, text=True,
+                         timeout=TIMEOUT_S)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("key", UNEVEN_CASES)
+def test_uneven_head_cuts_match_one_device(ranks, key):
+    """The production mesh's uneven cuts at a small size — 8 q heads over
+    2 KV heads on a model axis of 4, xLSTM's 2 heads on 4, Whisper's
+    attention through its layout, 3 experts on a model axis of 2 with
+    their groups cut over data — give one device's loss, gradients,
+    prefill and decode token (``check_jamba_step``'s and
+    ``test_prefill_and_decode_on_a_mesh``'s bounds)."""
+    row = ranks["uneven_heads"][key]
+    assert row["error"] is None, row["error"]
+    assert abs(row["loss_mesh"] - row["loss_one"]) <= \
+        STEP_LOSS_RTOL * abs(row["loss_one"])
+    assert abs(row["gnorm_mesh"] - row["gnorm_one"]) <= \
+        STEP_GNORM_RTOL * row["gnorm_one"]
+    assert row["grad_max_rel"] <= STEP_GRAD_REL
+    assert row["prefill_max_abs"] <= 1e-4
+    assert row["same_tokens"]
+
+
+@pytest.mark.parametrize("name", DRYRUN_STEPS)
+def test_dryrun_counts_equal_the_gloo_step(ranks, dryrun_steps, name):
+    """A reduced Qwen's real step on the 4 gloo ranks (``CommDebugMode``
+    on rank 0) makes the collectives, kind by kind, that the dry-run of
+    the same mesh on a fake 4-rank group counts, and holds the local
+    argument bytes it predicts."""
+    real, dry = ranks["dryrun_steps"][name], dryrun_steps[name]
+    assert real["counts"] == dry["counts"]
+    assert sum(real["counts"].values()) > 0
+    assert real["argument_bytes"] == dry["argument_bytes"]
+
+
 # ---------------------------------------------------------- collectives
 
 @pytest.mark.parametrize("group", ["world", "data"])
