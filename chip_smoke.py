@@ -53,7 +53,16 @@ around it: it imports nothing of the JAX package.  Phases:
    decoder prompts of 4-224 tokens left-padded, ``LM.prefill(frames=)``
    and 15 greedy ``decode_step``s, 96 flash_attention launches a prefill
    (32 non-causal encoder, 32 non-causal cross, 32 causal decoder calls),
-   the same timings and the same float32 check;
+   the same timings and the same float32 check.  Last Gemma 3 12B at
+   full width and depth (48 layers: 40 local with window 1024 and 8
+   global, 16 / 8 heads at hd 256, softcap 50; 8.93B params, 17.87 GB in
+   bf16: ``params_count()``'s 11.77B counts a gated MLP that the config's
+   GELU block does not have) through ``Server`` on the same traffic: one
+   flash_attention launch a layer a prefill (the hd-256 tensor-core
+   kernel), decode through the local layers' rolling window caches, the
+   float32 check
+   after the bf16 model is freed (42.6 GB peak on an H100 80GB HBM3 at
+   700 W);
 3f. engines: on the same world, each check against the numpy oracle —
    flume: Q7-agg and Q1 through ``FlumeEngine`` (checkpoints in a
    temporary directory), ⌈shards/8⌉ ``run_wave_fused`` a job, a second
@@ -188,12 +197,16 @@ around it: it imports nothing of the JAX package.  Phases:
    serve phase's stacks; flash_attention at each LM configuration's bf16
    prefill — Whisper's encoder self-attention and cross-attention too,
    non-causal, against SDPA with ``is_causal=False`` — naming the kernel
-   its dispatch ran, the tensor-core one at head dims 64 and 128, and
-   Gemma 3 12B's local layers at hd 256 (the SIMT kernel, window 1024,
-   softcap 50) on seeded [4, 16, 445, 256] inputs, beside SDPA's causal
-   time without window or softcap; its larger shape is the largest causal
-   prefill call tiled 4× along the sequence) and at one larger shape, timed with CUDA events beside the
-   plain version and a library call, and its wrapper's device
+   its dispatch ran, the tensor-core one at head dims 64, 128 and 256
+   (Gemma 3 12B's, window 1024, softcap 50, against ``flex_attention``
+   with the softcap and the window, SDPA's causal time without them
+   beside, and two larger Gemma calls from its
+   recorded prefill tiled along the sequence: a local layer at 4,096
+   positions, where the window skips tiles, and a global one at 1,780);
+   its larger shape is the largest causal prefill call at hd 64 or 128
+   tiled 4× along the sequence) and at one larger shape, timed with CUDA
+   events beside the plain version and a library call, and its wrapper's
+   device
    time and device operations per call from ``torch.profiler``
    (``device_ms``, ``device_ops``, ``device_records``); then the two
    plain PyTorch ops of phase 3f (``segment_hll``, ``merge_partials``) at
@@ -247,6 +260,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -312,7 +326,8 @@ KERNEL_FAMILIES = {
                        "seg_global_kernel"),
     ("refine_tracks_batched", "refine_tracks_multi", "refine_tracks"):
         ("refine_kernel",),
-    ("flash_attention",): ("flash_simt_kernel", "flash_tc_kernel"),
+    ("flash_attention",): ("flash_simt_kernel", "flash_tc_kernel",
+                           "flash_wide_kernel"),
     ("ssm_scan",): ("ssm_scan_kernel",),
 }
 FOLLOWERS = {"seg_combine_kernel"}
@@ -340,10 +355,12 @@ LM_CHECK_REL = 0.02
 #: Whisper: frame embeddings [batch, encoder positions] (30 s of audio at
 #: the encoder's 50 positions a second) and decoder prompt lengths drawn
 #: from this range (its decoder context is 448)
-#: phase 4's Gemma 3 12B row 9 case: q, k, v at the lm prefills' shape,
-#: 16 q / 8 KV heads at hd 256, and its local layers' mask
-GEMMA_FLASH_SHAPES = ((4, 16, 445, 256), (4, 8, 445, 256), (4, 8, 445, 256))
-GEMMA_FLASH_KW = (("causal", True), ("window", 1024), ("softcap", 50.0))
+#: phase 4's larger Gemma 3 12B calls, its recorded prefill tiled along
+#: the sequence (the serve traffic never reaches the window): name →
+#: (positions, options)
+GEMMA_LARGE_CALLS = {
+    "local": (4096, {"causal": True, "window": 1024, "softcap": 50.0}),
+    "global": (1780, {"causal": True, "softcap": 50.0})}
 WHISPER_FRAMES = (4, 1500)
 WHISPER_PROMPT_LENS = (4, 224)
 #: kernel vs plain version: flash_attention within ``ref.flash_tolerance``
@@ -1187,37 +1204,53 @@ def main(require_cards: int = 1) -> int:
                                                    args[0].shape[-1]),
                     **measure(name, *flash_case(torch, *args, **kw), 20, 3,
                               BF16_TENSOR_OPS_PER_S)}
-            # Gemma 3 12B's local layers: hd 256 runs the SIMT kernel,
-            # window 1024, softcap 50.  No lm phase serves Gemma: seeded
-            # inputs at the lm prefills' shape.  SDPA has neither window
-            # nor softcap (library_ms stays null); its causal time on the
-            # same inputs stands beside the row
-            gen = torch.Generator(device="cuda").manual_seed(25)
-            gq, gk, gv = (torch.randn(s_, generator=gen, device="cuda")
-                          .to(torch.bfloat16) for s_ in GEMMA_FLASH_SHAPES)
-            gkw = dict(GEMMA_FLASH_KW)
-            gemma = {"config": "gemma3_12b", "shape": list(gq.shape),
-                     "kv_shape": list(gk.shape), **gkw,
-                     "kernel": fa_kernel.kernel_for(gq.dtype, gq.shape[-1]),
-                     **measure(name, *flash_case(torch, gq, gk, gv, **gkw),
-                               20, 3, BF16_TENSOR_OPS_PER_S)}
+            # Gemma 3 12B: the library call is flex_attention (SDPA has
+            # neither window nor softcap); SDPA's causal time on the same
+            # inputs stands beside each row.  The serve traffic never
+            # reaches the window: two larger calls from the recorded prefill
             from torch.nn.functional import scaled_dot_product_attention
-            gemma["sdpa_causal_ms_without_window_softcap"] = cuda_ms(
-                lambda: scaled_dot_product_attention(
-                    gq, gk, gv, is_causal=True, enable_gqa=True), 20)
-            entry["gemma3_hd256"] = gemma
-            print(f"kernel flash_attention[gemma3_12b]: {gemma['kernel']} "
-                  f"{gemma['shape']} device {gemma['device_ms']} ms, "
-                  f"{gemma['ms']} ms (bound {gemma['bound_ms']:.5f}; SDPA "
-                  "causal, without window and softcap, "
-                  f"{gemma['sdpa_causal_ms_without_window_softcap']}); "
-                  f"max |err| {gemma['max_abs_err']}")
-            del gq, gk, gv
-            # the largest causal prefill call scales to the larger
-            # shape, not an encoder's or a cross call
+            g_args, g_kw = lm_inputs["flash_attention"]["gemma3_12b"]
+
+            def sdpa_causal(q, k, v):
+                return cuda_ms(lambda: scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 10)
+
+            per_config["gemma3_12b"].update(
+                window=g_kw.get("window"), softcap=g_kw.get("softcap"),
+                sdpa_causal_ms_without_window_softcap=sdpa_causal(*g_args))
+            gemma = {}
+            for label, (n, gkw) in GEMMA_LARGE_CALLS.items():
+                big = tuple(tile(t, -(-n // t.shape[2]), 2)[:, :, :n]
+                            .contiguous() for t in g_args)
+                row = gemma[label] = {
+                    "shape": list(big[0].shape),
+                    "kv_shape": list(big[1].shape), **gkw,
+                    "kernel": fa_kernel.kernel_for(big[0].dtype,
+                                                   big[0].shape[-1]),
+                    **measure(name, *flash_case(torch, *big, **gkw), 10, 1,
+                              BF16_TENSOR_OPS_PER_S),
+                    "sdpa_causal_ms_without_window_softcap":
+                        sdpa_causal(*big)}
+                if row["kernel"] != "tensor_core":
+                    fail(f"flash_attention gemma3_12b {label}: the "
+                         f"{row['kernel']} kernel ran")
+                print(f"kernel flash_attention[gemma3_12b {label}]: "
+                      f"{row['kernel']} {row['shape']} x {row['kv_shape']} "
+                      f"device {row['device_ms']} ms, {row['ms']} ms "
+                      f"(bound {row['bound_ms']:.5f}; flex_attention "
+                      f"{row['library_ms']}; SDPA causal, without "
+                      "window and softcap, "
+                      f"{row['sdpa_causal_ms_without_window_softcap']}); "
+                      f"max |err| {row['max_abs_err']}")
+                del big
+            entry["gemma3_larger_calls"] = gemma
+            # the largest causal prefill call at hd 64 or 128 scales to
+            # the larger shape (not an encoder's or a cross call; hd 256
+            # has its larger calls above)
             top = max(((k, v) for k, v in
                        lm_inputs["flash_attention"].items()
-                       if v[1].get("causal", True)),
+                       if v[1].get("causal", True)
+                       and v[0][0].shape[-1] <= 128),
                       key=lambda kv: kv[1][0][0].numel())
             args, kw = top[1]
             wave = per_config[top[0]]
@@ -1236,7 +1269,7 @@ def main(require_cards: int = 1) -> int:
                 print(f"kernel flash_attention[{cname}]: {row['kernel']} "
                       f"{row['shape']} x {row['kv_shape']} device "
                       f"{row['device_ms']} ms "
-                      f"(SDPA {row['library_ms']}, bound "
+                      f"(library {row['library_ms']}, bound "
                       f"{row['bound_ms']:.5f}); max |err| "
                       f"{row['max_abs_err']} (atol {row['atol']:.6f}, "
                       f"mean |plain| {row['mean_abs_plain']:.6f}; without "
@@ -2041,8 +2074,9 @@ def launch_path(torch, np, calls=LAUNCH_PATH_CALLS,
 
 def flash_case(torch, q, k, v, **kw):
     """The flash_attention case for ``measure``: kernel, plain version,
-    SDPA (causal self-attention with Sq = Skv, or non-causal attention of
-    any Sq, Skv; without window or softcap), the check, bytes and
+    the library call (SDPA for causal self-attention with Sq = Skv, or
+    non-causal attention of any Sq, Skv, without window or softcap; else
+    ``flex_attention``: :func:`flex_library`), the check, bytes and
     operations.  Bound: 4·D flops (two products) per unmasked (query,
     key) pair and head at the bf16 tensor rate, or q, k, v and o once."""
     from torch.nn.functional import scaled_dot_product_attention
@@ -2093,10 +2127,61 @@ def flash_case(torch, q, k, v, **kw):
         def library():
             return scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True)
+    else:
+        library = flex_library(torch, q, k, v, **kw)
     return (lambda: fa_kernel.flash_attention(q, k, v, **kw),
             lambda: ref.flash_attention_ref(q, k, v, **kw), library,
             compare, q.element_size() * (2 * q.numel() + 2 * k.numel()),
             4 * b * hq * d * pairs)
+
+
+_FLEX = []
+
+
+def flex_library(torch, q, k, v, *, causal=True, window=None, softcap=None,
+                 scale=None):
+    """One PyTorch call that computes flash_attention where SDPA cannot (a
+    window, a softcap, a causal mask at the Skv − Sq offset):
+    ``flex_attention``, compiled once (Inductor's Triton kernel, built
+    here before any timed call), the softcap its ``score_mod`` and the
+    causal and window mask its block mask, GQA through ``enable_gqa``.
+    Held to the plain version within ``ref.flash_tolerance``."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    from repro_torch.kernels import _build, ref
+    if not _FLEX:
+        # Inductor's and Triton's caches in the kernels' build directory
+        for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                         ("TRITON_CACHE_DIR", "triton")):
+            os.environ.setdefault(var, str(_build.BUILD_DIR / sub))
+        _FLEX.append(torch.compile(flex_attention, dynamic=False))
+    off = k.shape[2] - q.shape[2]
+
+    def mask_mod(b, h, qi, ki):
+        keep = ki <= qi + off if causal else ki >= 0
+        if window:
+            keep = keep & (ki > qi + off - window)
+        return keep
+
+    def score_mod(x, b, h, qi, ki):
+        return softcap * torch.tanh(x / softcap)
+
+    block_mask = create_block_mask(mask_mod, None, None, q.shape[2],
+                                   k.shape[2], device=q.device)
+
+    def library():
+        return _FLEX[0](q, k, v, score_mod=score_mod if softcap else None,
+                        block_mask=block_mask, scale=scale,
+                        enable_gqa=True)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    atol, rtol = ref.flash_tolerance(want)          # in q's dtype
+    want = want.float()
+    d_ = (library().float() - want).abs()
+    if bool((d_ > atol + rtol * want.abs()).any()):
+        fail(f"flash_attention {list(q.shape)}: flex_attention, the library "
+             f"call, differs from the plain version by {float(d_.max())}")
+    return library
 
 
 def ssm_case(torch, a, bx, h0):
@@ -2249,7 +2334,9 @@ def lm_phase(torch, np, totals):
                    replace(jamba, num_layers=8), _served),
                "xlstm_1_3b": (get_config("xlstm_1_3b"), _served),
                "whisper_large_v3": (get_config("whisper_large_v3"),
-                                    _transcribed)}
+                                    _transcribed),
+               # full width and depth: 8.93B params, 17.87 GB in bf16
+               "gemma3_12b": (get_config("gemma3_12b"), _served)}
     inputs = {"flash_attention": {}, "ssm_scan": None}
     expected = set()
     for cname, (cfg, start) in configs.items():

@@ -47,6 +47,8 @@ class ArchConfig:
     ssm_state: int = 16
     ssm_conv: int = 4
     ssm_expand: int = 2
+    # the Mamba and mLSTM chunk length (the reference's REPRO_SSM_CHUNK)
+    ssm_chunk: int = 256
     # enc-dec (whisper)
     encoder_layers: int = 0
     frontend: Optional[str] = None   # audio_stub | vision_stub

@@ -1,7 +1,8 @@
 // Forward flash attention: online-softmax GQA attention with the causal
-// mask at a decode offset, a sliding window and tanh soft-capping.  Two
+// mask at a decode offset, a sliding window and tanh soft-capping.  Three
 // kernels; the wrapper (kernels/flash_attention.py, `kernel_for`) picks
-// one from the dtype and the head dim alone.
+// the tensor cores or SIMT from the dtype and the head dim alone, and the
+// tensor-core entry picks its kernel from the head dim.
 //
 // Replaces: src/repro/kernels/flash_attention.py, _flash_kernel /
 // flash_attention (the TPU kernel runs a (B*Hq, Sq/bq, Skv/bk) grid with
@@ -12,7 +13,7 @@
 // (query, key) pair against 2*D bytes a key row; hundreds of pairs a key
 // at S = 512), bytes for short or single-token queries.
 //
-// Both kernels: one block per (b*Hq + h, 64-query tile).  The sequential
+// Every kernel: one block per (b*Hq + h, query tile).  The sequential
 // KV grid axis becomes a loop over 64-key tiles inside the block, with m,
 // l and the output accumulator in registers in float32.  The loop runs
 // only over the tiles that the causal mask and the window leave partly
@@ -23,7 +24,8 @@
 // out 0, as the TPU kernel's l = 0 guard gives.  The KV head of query
 // head h is h / (Hq / Hkv), as the TPU index map.
 //
-// flash_tc_kernel (bfloat16, head dims 64 and 128): Hopper's tensor cores.
+// flash_tc_kernel (bfloat16, head dims 64 and 128): Hopper's tensor cores,
+// 64-query tiles.
 //   * One consumer warpgroup (128 threads) owns the 64 query rows; warp w
 //     holds rows 16w..16w+15 of every accumulator fragment.
 //   * Copies: TMA.  Q, K and V are 3-D tensor maps ([B*H, S, D], box 64
@@ -46,8 +48,37 @@
 //     a 16-key step and 64-dim box.  O stays fp32 in registers; the
 //     epilogue scales by 1/l (0 where l = 0) and writes bf16.
 //
-// flash_simt_kernel (float32 at every head dim, and bf16 at head dims 16,
-// 32 and 256): SIMT fp32 products.  256 threads; Q, K and V tiles are
+// flash_wide_kernel (bfloat16, head dim 256): the same products and
+// softmax in 128-row blocks.  At hd 256 one warpgroup holds a 64 x 256
+// fp32 accumulator (128 registers a thread) and a 64-row block 160 KB of
+// tiles, one block an SM with nothing to hide its softmax behind (the
+// SIMT kernel ran 42x its operations bound there); so:
+//   * A block owns 128 query rows: two warpgroups of 64 rows each share
+//     every K/V tile (half the K/V reads a query of 64-row blocks), and
+//     while one runs its softmax the other's products use the tensor
+//     cores.
+//   * Shared memory: Q 128 x 256 bf16 (64 KB) for the whole loop; K and V
+//     64 x 256 each (64 KB a stage) in a ring of two stages, each with a
+//     full barrier (the copies' bytes) and an empty one (one arrival a
+//     warp); 193 KB in all.  Thread 0 issues tile t+1's copies into the
+//     stage tile t-1 held once every warp has released it, then waits for
+//     tile t, so one tile of slack lies between the warpgroups.
+//   * Both warpgroups take every key tile of the block's bounds (the
+//     causal and window skip at tile granularity, as flash_tc_kernel);
+//     the mask on a tile that crosses a boundary of their own rows.
+//   * Grid (B*Hq, ceil(Sq/128)) with the query tile reversed along y, so
+//     that under the causal mask the longest tiles of every head start
+//     first.
+//   * 256 threads leave ptxas 255 registers a thread (it takes ~200).
+//     Measured against it (tools/flash_ab.py, PERF.md): a producer warp
+//     with setmaxnreg 24/240 (a launch budget of 168 registers: ptxas
+//     then waits after every wgmma, C7512, and spills), a warpgroup
+//     skipping the tiles none of its rows sees (the products serialised
+//     again), one m64n256k16 a 16-key step for P V, and an S-product
+//     ping-pong over named barriers: each slower.
+//
+// flash_simt_kernel (float32 at every head dim, and bf16 at head dims 16
+// and 32): SIMT fp32 products.  256 threads; Q, K and V tiles are
 // converted to float32 in shared memory (Q and K rows padded by one word,
 // so the strided row reads hit distinct banks).  A 16x16 thread grid owns
 // rows ty + 16i and key columns tx + 16j (i, j < 4) of the 64x64 logit
@@ -293,17 +324,26 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(1)
-               : "memory");
-}
-
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
                                                uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// A barrier that completes a phase after `count` arrivals (and the bytes
+// announced by expect_tx).
+__device__ __forceinline__ void mbar_init(uint64_t* bar,
+                                          uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
                : "memory");
 }
 
@@ -414,6 +454,17 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// The hardware tanh (relative error about 2^-11): the soft-cap multiplies
+// it by the cap, so a logit moves by about 2^-11 of itself, under the
+// bf16 rounding of P that follows.  tanhf's software sequence made the
+// softmax the larger part of a tile at hd 256 (Gemma 3, the one config
+// with a soft-cap).
+__device__ __forceinline__ float fast_tanh(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -442,8 +493,9 @@ __device__ __forceinline__ void tile_softmax(float (&s)[32], float (&m)[2],
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     const int r = (i >> 1) & 1;
-    float x = softcap_log2 > 0.f ? softcap_log2 * tanhf(s[i] * scale_over_cap)
-                                 : s[i] * scale_log2;
+    float x = softcap_log2 > 0.f
+                  ? softcap_log2 * fast_tanh(s[i] * scale_over_cap)
+                  : s[i] * scale_log2;
     if (kMask) {
       const int kp = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
       const bool ok = kp < Skv && (!causal || kp <= qp[r]) &&
@@ -628,6 +680,195 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
+// ------------------------------------------------- 128-row blocks (hd 256)
+
+constexpr int kWideGroups = 2;                   // 64-row warpgroups a block
+constexpr int kWideBQ = 64 * kWideGroups;        // query rows a block
+constexpr int kWideThreads = 128 * kWideGroups;
+
+constexpr int kWideD = 256;                      // its one head dim
+
+constexpr size_t wide_smem_bytes() {
+  // Q (one tile a warpgroup), then K and V per stage, D / 64 boxes a
+  // tile; the q barrier and a full and an empty barrier a stage; 1 KB to
+  // align the boxes to the 128B swizzle's 1024-byte period
+  return 1024 + sizeof(__nv_bfloat16) * kBoxElems * (kWideD / kBox) *
+                    (kWideGroups + 2 * kStages) +
+         sizeof(uint64_t) * (1 + 2 * kStages);
+}
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+    flash_wide_kernel(__grid_constant__ const CUtensorMap qmap,
+                      __grid_constant__ const CUtensorMap kmap,
+                      __grid_constant__ const CUtensorMap vmap,
+                      __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
+                      int Sq, int Skv, int causal, int window,
+                      float scale_log2, float softcap_log2,
+                      float scale_over_cap) {
+  constexpr int D = kWideD;
+  constexpr int NB = D / kBox;
+  constexpr int kTileElems = NB * kBoxElems;   // 64 rows x D
+  constexpr uint32_t kKvBytes = 2 * kTileElems * sizeof(__nv_bfloat16);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  auto* qs = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + (((raw + 1023) & ~1023u) - raw));   // [kWideGroups][tile]
+  __nv_bfloat16* ks = qs + kWideGroups * kTileElems;   // [kStages][tile]
+  __nv_bfloat16* vs = ks + kStages * kTileElems;       // [kStages][tile]
+  auto* bars = reinterpret_cast<uint64_t*>(vs + kStages * kTileElems);
+  uint64_t* q_bar = bars;
+  uint64_t* full = bars + 1;                           // [kStages]
+  uint64_t* empty = full + kStages;                    // [kStages]
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int g = lane >> 2;             // the thread's rows: g and g + 8
+  const int tig = lane & 3;            // its place in the row's quad
+  const int bh = blockIdx.x;
+  const int b = bh / Hq;
+  const int kv_bh = b * Hkv + (bh % Hq) / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWideBQ;   // longest first
+  const int off = Skv - Sq;            // queries sit at the end of the KV
+  const int r0 = q0 + 64 * wg;         // this warpgroup's first row
+
+  // the key tiles some row of the block can see (both warpgroups take
+  // every one: a tile skipped by one warpgroup alone makes ptxas
+  // serialise the products)
+  const int q_first = q0 + off;
+  const int q_last = min(q0 + kWideBQ, Sq) - 1 + off;
+  int k_lo = 0;
+  int k_hi = Skv - 1;
+  if (causal) k_hi = min(k_hi, q_last);
+  if (window > 0) k_lo = max(0, q_first - window + 1);
+  const int t_lo = k_lo / kBK;
+  const int t_hi = k_hi >= k_lo ? k_hi / kBK : t_lo - 1;
+
+  auto load_kv = [&](int t, int stage) {
+    mbar_expect_tx(&full[stage], kKvBytes);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      tma_box(ks + stage * kTileElems + nb * kBoxElems, &kmap,
+              &full[stage], nb * kBox, t * kBK, kv_bh);
+      tma_box(vs + stage * kTileElems + nb * kBoxElems, &vmap,
+              &full[stage], nb * kBox, t * kBK, kv_bh);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(q_bar);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st]);
+      mbar_init(&empty[st], 4 * kWideGroups);   // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && t_lo <= t_hi) {
+    mbar_expect_tx(q_bar, kWideGroups * kTileElems * 2);
+    for (int c = 0; c < kWideGroups; ++c)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        tma_box(qs + c * kTileElems + nb * kBoxElems, &qmap, q_bar,
+                nb * kBox, q0 + 64 * c, bh);
+    load_kv(t_lo, 0);
+  }
+
+  const __nv_bfloat16* qw = qs + wg * kTileElems;
+  float acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+  float m[2] = {kMaskedMax, kMaskedMax};
+  float l[2] = {0.f, 0.f};
+  const int qp[2] = {r0 + 16 * warp + g + off, r0 + 16 * warp + g + 8 + off};
+  if (t_lo <= t_hi) mbar_wait(q_bar, 0);
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int i = t - t_lo;
+    const int stage = i % kStages;
+    if (tid == 0 && t < t_hi) {
+      // the next tile goes where tile t - 1 was: both warpgroups are done
+      // with it (each warp arrives on its empty barrier)
+      if (i >= 1) mbar_wait(&empty[stage ^ 1], ((i - 1) / kStages) & 1);
+      load_kv(t + 1, stage ^ 1);
+    }
+    mbar_wait(&full[stage], (i / kStages) & 1);
+    const __nv_bfloat16* kt = ks + stage * kTileElems;
+    const __nv_bfloat16* vt = vs + stage * kTileElems;
+
+    float s[32];
+#pragma unroll
+    for (int i2 = 0; i2 < 32; ++i2) s[i2] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int e = (kk >> 2) * kBoxElems + (kk & 3) * 16;
+      wgmma_ss(s, k_major(qw + e), k_major(kt + e), kk > 0);
+    }
+    wgmma_commit_wait();
+
+    const int k0 = t * kBK;
+    const bool edge = k0 + kBK > Skv ||
+                      (causal && k0 + kBK - 1 > r0 + off) ||
+                      (window > 0 && k0 <= r0 + 63 + off - window);
+    float corr[2];
+    if (edge)
+      tile_softmax<true>(s, m, l, corr, qp, k0, tig, Skv, causal, window,
+                         scale_log2, softcap_log2, scale_over_cap);
+    else
+      tile_softmax<false>(s, m, l, corr, qp, k0, tig, Skv, causal, window,
+                          scale_log2, softcap_log2, scale_over_cap);
+
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i2 = 0; i2 < 32; ++i2) acc[nb][i2] *= corr[(i2 >> 1) & 1];
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        wgmma_rs_tb(acc[nb], pa[kk],
+                    mn_major(vt + nb * kBoxElems + kk * 16 * kBox));
+    wgmma_commit_wait();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);   // the warp is done
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 16 * warp + g + 8 * r;
+    if (row >= Sq) continue;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(bh) * Sq + row) * D;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = nb * kBox + 8 * j + 2 * tig;
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            pack_bf16(acc[nb][4 * j + 2 * r] * inv[r],
+                      acc[nb][4 * j + 2 * r + 1] * inv[r]);
+      }
+  }
+}
+
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 
 // The driver's cuTensorMapEncodeTiled, looked up once (the library links
@@ -686,6 +927,32 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        int B, int Hq, int Hkv, int Sq, int Skv, int causal,
+                        int window, float scale, float softcap,
+                        cudaStream_t st) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  CUtensorMap qmap, kmap, vmap;
+  if (!box_map(encode, &qmap, q, B * Hq, Sq, kWideD) ||
+      !box_map(encode, &kmap, k, B * Hkv, Skv, kWideD) ||
+      !box_map(encode, &vmap, v, B * Hkv, Skv, kWideD))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = wide_smem_bytes();
+  auto kern = flash_wide_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * Hq, (Sq + kWideBQ - 1) / kWideBQ);
+  kern<<<grid, kWideThreads, smem, st>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Skv,
+      causal, window, scale * kLog2e,
+      softcap > 0.f ? softcap * kLog2e : 0.f,
+      softcap > 0.f ? scale / softcap : 0.f);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 REPRO_STRERROR
@@ -711,8 +978,9 @@ REPRO_EXPORT int repro_flash_attention_simt(const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// The same on the tensor cores: bfloat16 only, D 64 or 128, every pointer
-// 16-byte aligned (TMA).
+// The same on the tensor cores: bfloat16 only, D 64 or 128
+// (flash_tc_kernel) or 256 (flash_wide_kernel), every pointer 16-byte
+// aligned (TMA).
 REPRO_EXPORT int repro_flash_attention_tc(const void* q, const void* k,
                                           const void* v, void* o, int B,
                                           int Hq, int Hkv, int Sq, int Skv,
@@ -735,6 +1003,10 @@ REPRO_EXPORT int repro_flash_attention_tc(const void* q, const void* k,
     case 128:
       err = launch_tc<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
                            scale, softcap, st);
+      break;
+    case 256:
+      err = launch_wide(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window,
+                        scale, softcap, st);
       break;
     default:
       err = cudaErrorInvalidValue;

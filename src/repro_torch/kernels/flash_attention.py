@@ -3,12 +3,14 @@ window, tanh soft-capping).
 
 The wrapper of ``csrc/flash_attention.cu``, the port of the TPU kernel
 ``repro/kernels/flash_attention.py`` ``flash_attention``.  CUDA tensors
-launch one of two kernels, picked by :func:`kernel_for` from the dtype and
-the head dim alone: bfloat16 at head dims 64 and 128 runs on the tensor
-cores (``repro_flash_attention_tc``: wgmma products, TMA copies), float32
-and bfloat16 at head dims 16, 32 and 256 on the SIMT kernel
-(``repro_flash_attention_simt``: fp32 products).  Either counts as one
-``flash_attention`` launch.  CPU tensors run the plain version
+launch one of two entries, picked by :func:`kernel_for` from the dtype and
+the head dim alone: bfloat16 at head dims 64, 128 and 256 runs on the
+tensor cores (``repro_flash_attention_tc``: wgmma products, TMA copies;
+64-row blocks of one warpgroup at 64 and 128, 128-row blocks of two
+warpgroups sharing each K/V tile at 256), float32 at every head dim and
+bfloat16 at 16 and 32 on
+the SIMT kernel (``repro_flash_attention_simt``: fp32 products).  Either
+counts as one ``flash_attention`` launch.  CPU tensors run the plain version
 (``ref.flash_attention_ref``).  All accumulate in float32 and return q's
 dtype.  The kernels have no backward: on CUDA tensors the wrapper raises
 when grad mode is on and an input requires grad (the plain version
@@ -19,7 +21,8 @@ take their exponentials per 64-key tile (online softmax), so outputs
 agree to float32 rounding (3e-3 absolute on unit-normal inputs, as the JAX
 package holds its Pallas kernel), and in bfloat16 to 3e-2: one bfloat16
 rounding of the output, and on the tensor cores the probabilities' own
-bfloat16 rounding before the value product.  A query row with every key
+bfloat16 rounding before the value product (and the soft-cap's hardware
+tanh, about 2^-11 of a logit).  A query row with every key
 masked (only possible when Sq > Skv) comes out 0 from either kernel, as
 from the TPU kernel, and as the mean of V from the plain version, as from
 the JAX reference; the LM never makes one.
@@ -38,15 +41,15 @@ __all__ = ["flash_attention", "kernel_for", "HEAD_DIMS",
 
 #: head dims the CUDA kernels are built for
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: head dims of the tensor-core kernel (bfloat16 only)
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+#: head dims of the tensor-core kernels (bfloat16 only)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 _ENTRIES = {"tensor_core": "repro_flash_attention_tc",
             "simt": "repro_flash_attention_simt"}
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel a call with q of ``dtype`` and ``head_dim`` runs:
-    ``"tensor_core"`` for bfloat16 at head dims 64 and 128, else
+    ``"tensor_core"`` for bfloat16 at head dims 64, 128 and 256, else
     ``"simt"`` (float32 keeps full float32 products: TF32 would break its
     3e-3 tolerance)."""
     if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:

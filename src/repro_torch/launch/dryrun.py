@@ -34,9 +34,15 @@ global shapes).  It counts
   * memory: the live bytes of the local storages, the arguments' from the
     start and every storage an op makes until it is freed; the peak.
 
-Every Python loop runs (the sLSTM time loop, the KV blocks), so nothing
-is undercounted as a ``while`` body is in HLO; a cell costs its host time,
-which ``lower_s`` records.  Nothing compiles: ``compile_s`` is 0.
+Every Python loop runs (the KV blocks, the mLSTM chunks), so nothing is
+undercounted as a ``while`` body is in HLO; a cell costs its host time,
+which ``lower_s`` records.  The sLSTM time loop (4,096 to 32,768 steps a
+layer) is the exception: on fake tensors it runs two steps, and the second
+step's FLOPs, bytes and collectives count once for each skipped step, whose
+kept outputs are made as fresh tensors (``one_step`` / ``repeat``, which
+``ml/xlstm.py``'s ``_time_loop`` asks for), as the reference counts a loop
+body times its trip count.  The counts and the peak equal the step-by-step loop's.
+Nothing compiles: ``compile_s`` is 0.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen1_5_0_5b \\
@@ -147,7 +153,8 @@ class StepCounter(TorchDispatchMode):
     the ``memory`` / ``cost`` / ``collectives`` / ``analyzed`` parts of a
     dry-run record.  On real tensors it counts the same way, so a real
     step can be held to a fake one.  ``alltoall_as_nccl`` (fake tensors
-    only) runs a CPU mesh's all-to-all as the card's."""
+    only) runs a CPU mesh's all-to-all as the card's.  On fake tensors a
+    time loop counts one step for all (``loops_once``)."""
 
     def __init__(self, *, alltoall_as_nccl: bool = False):
         super().__init__()
@@ -196,6 +203,63 @@ class StepCounter(TorchDispatchMode):
                 seen.add(st._cdata)
                 n += st.nbytes()
         self.output_bytes = n
+
+    # ------------------------------------------------ loops counted once
+    @property
+    def loops_once(self) -> bool:
+        """Whether a time loop counts one step for all (``one_step``,
+        ``repeat``; read by ``ml.xlstm._time_loop``): under a
+        ``FakeTensorMode`` only, since a real step runs every step."""
+        from torch._guards import detect_fake_mode
+        return detect_fake_mode() is not None
+
+    @contextlib.contextmanager
+    def one_step(self):
+        """Count the block as one loop step: yields a :class:`LoopStep`
+        filled in when the block ends."""
+        one = LoopStep()
+        flops, nbytes, live, peak = self.flops, self.bytes, self.live, \
+            self.peak
+        kinds = {k: dict(v) for k, v in self.per_kind.items()}
+        self.peak = live
+        try:
+            yield one
+        finally:
+            one.flops = self.flops - flops
+            one.bytes = self.bytes - nbytes
+            one.per_kind = {
+                k: {f: n - kinds.get(k, {}).get(f, 0) for f, n in v.items()}
+                for k, v in self.per_kind.items()}
+            one.kept = self.live - live
+            one.transient = self.peak - live
+            self.peak = max(peak, self.peak)
+
+    def repeat(self, one: "LoopStep", like):
+        """Count a step the loop skips as ``one`` again: its FLOPs, bytes
+        and collectives, its transient peak above the live bytes, and
+        fresh tensors shaped as ``like`` (the step's kept outputs), live
+        from now on, which it returns."""
+        self.flops += one.flops
+        self.bytes += one.bytes
+        for k, v in one.per_kind.items():
+            row = self.per_kind.setdefault(k, {"count": 0, "bytes": 0})
+            for f, n in v.items():
+                row[f] += n
+        self.peak = max(self.peak, self.live + one.transient)
+        self._paused += 1
+        try:
+            fresh = tuple(torch.empty_like(t) for t in like)
+        finally:
+            self._paused -= 1
+        live = self.live
+        for t in fresh:
+            self._track(_local(t))
+        if self.live - live != one.kept:
+            raise RuntimeError(
+                f"a loop counted once keeps {self.live - live} bytes a "
+                f"skipped step, its counted step {one.kept}: the step "
+                "keeps more than its outputs")
+        return fresh
 
     # ----------------------------------------------------------- the mode
     def __enter__(self):
@@ -312,6 +376,14 @@ class StepCounter(TorchDispatchMode):
         }
 
 
+class LoopStep:
+    """What one counted loop step did (``StepCounter.one_step``): its
+    FLOPs, bytes and collectives a kind, the bytes it left live
+    (``kept``) and its peak above the live bytes it found
+    (``transient``)."""
+    __slots__ = ("flops", "bytes", "per_kind", "kept", "transient")
+
+
 # ------------------------------------------------------------ fake world
 
 @contextlib.contextmanager
@@ -387,11 +459,7 @@ def _arch_overrides(args) -> dict:
     if args.moe_group:
         out["moe_group_size"] = args.moe_group
     if args.ssm_chunk:
-        raise SystemExit(
-            "--ssm_chunk: the port has no knob for the reference's "
-            "REPRO_SSM_CHUNK — mamba_apply(chunk=) and mlstm_apply(chunk=) "
-            "take it, but the LM calls them with 256 and no config field "
-            "or constructor argument reaches them")
+        out["ssm_chunk"] = args.ssm_chunk
     return out
 
 

@@ -296,13 +296,14 @@ def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
             extras["cross_k"], extras["cross_v"] = kx, vx
     elif kind == "mamba":
         if return_state:
-            y, extras = Mb.mamba_apply(h, p["mamba"], return_state=True,
-                                       impl=impl)
+            y, extras = Mb.mamba_apply(h, p["mamba"], chunk=cfg.ssm_chunk,
+                                       return_state=True, impl=impl)
         else:
-            y = Mb.mamba_apply(h, p["mamba"], impl=impl)
+            y = Mb.mamba_apply(h, p["mamba"], chunk=cfg.ssm_chunk, impl=impl)
         x = x + y
     else:
-        cell = X.mlstm_apply if kind == "mlstm" else X.slstm_apply
+        cell = partial(X.mlstm_apply, chunk=cfg.ssm_chunk) \
+            if kind == "mlstm" else X.slstm_apply
         if return_state:
             y, extras = cell(h, p["cell"], cfg.num_heads, return_state=True)
         else:

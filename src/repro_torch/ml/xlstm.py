@@ -14,13 +14,16 @@ reference's ``jax.checkpoint``: backward recomputes the chunk's decay
 matrices instead of keeping them.  Decode is the O(1) recurrence.
 
 sLSTM (§2.2) has a scalar memory with recurrent block-diagonal per-head
-connections, so it is sequential: a loop over time, each step under
-``torch.utils.checkpoint`` where grad is on (the reference scans a
-checkpointed step).  The four input projections are one product each over
-the whole sequence, in float32.  A gated pf=4/3 MLP follows.
+connections, so it is sequential: a loop over time.  Where grad is on it
+runs as one ``autograd.Function`` that keeps each step's state and
+recomputes the step in backward (the reference scans a checkpointed
+step).  Under the dry-run's counter the loop runs two steps and counts
+the rest (``_time_loop``).  The four input projections are one product
+each over the whole sequence, in float32.  A gated pf=4/3 MLP follows.
 
 The reference's ``REPRO_SSM_CHUNK`` is ``mlstm_apply``'s ``chunk``
-argument here (256 by default), as in ``ml/mamba.py``.  On a mesh the
+argument here (256 by default), as in ``ml/mamba.py``; the LM passes
+``ArchConfig.ssm_chunk``.  On a mesh the
 mLSTM chunks run on each rank's pieces through ``local_map`` (the batch
 over the batch axes, the heads over ``model`` where they divide it, else
 every head on every rank of it), and the sLSTM loop and its output MLP on
@@ -325,22 +328,126 @@ def _state(st):
     return dict(zip(("c", "n", "h", "m"), st))
 
 
+def _loop_counter():
+    """The active dispatch mode that counts one step of a time loop and
+    repeats its count for the others (the dry-run's ``StepCounter`` on
+    fake tensors), else None: only such a counter skips steps."""
+    from torch.utils._python_dispatch import \
+        _get_current_dispatch_mode_stack
+    for mode in _get_current_dispatch_mode_stack():
+        if getattr(mode, "loops_once", False):
+            return mode
+    return None
+
+
+def _time_loop(step, carry, order):
+    """``carry, kept = step(t, carry)`` for each t of ``order`` → (the
+    last carry, each step's ``kept`` tuple in that order).
+
+    Under a counter that counts loops once (``_loop_counter``), the first
+    two steps run, the second is counted (``one_step``), and each later
+    step is that count again with fresh tensors shaped as its ``kept``
+    (``repeat``): FLOPs, bytes and collectives × the trip count, the kept
+    bytes live as in the step-by-step loop and each step's transient peak
+    above them, as the reference's HLO analysis counts a loop body times
+    its trip count.  The carry stays the second step's.  Every step after
+    the first must run the same ops on the same shapes."""
+    counter = _loop_counter()
+    kept = []
+    if counter is None or len(order) < 3:
+        for t in order:
+            carry, k = step(t, carry)
+            kept.append(k)
+        return carry, kept
+    carry, k = step(order[0], carry)
+    kept.append(k)
+    with counter.one_step() as one:
+        carry, k = step(order[1], carry)
+    kept.append(k)
+    kept.extend(counter.repeat(one, k) for _ in order[2:])
+    return carry, kept
+
+
+#: the recurrent weights and biases one sLSTM step reads
+_STEP_WEIGHTS = tuple(f"{w}{g}" for w in "rb" for g in _GATES)
+
+
+class _SlstmLoop(torch.autograd.Function):
+    """The sLSTM time loop where grad is on: forward keeps each step's
+    state (c, n, h, m), as a checkpoint a step keeps its inputs; backward
+    recomputes the steps from them in reverse, each under its own small
+    graph, writes the inputs' gradients a step and sums the weights'.
+    Inputs (num_heads, z0, xi, xf, xz, xo [B, S, D] float32, the
+    ``_STEP_WEIGHTS``) → (h [B, S, D], the last c, n, m)."""
+
+    @staticmethod
+    def forward(ctx, num_heads, z0, *tensors):
+        xw, ws = tensors[:4], tensors[4:]
+        p = dict(zip(_STEP_WEIGHTS, ws))
+
+        def step(t, st):
+            st = _slstm_step(p, num_heads, *st, *(w[:, t] for w in xw))
+            return st, st
+
+        st, states = _time_loop(step, (z0,) * 4, range(xw[0].shape[1]))
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(z0, *tensors, *(t for k in states for t in k))
+        return torch.stack([k[2] for k in states], dim=1), st[0], st[1], \
+            st[3]
+
+    @staticmethod
+    def backward(ctx, g_h, g_c, g_n, g_m):
+        saved = ctx.saved_tensors
+        z0, xw, ws = saved[0], saved[1:5], saved[5:5 + len(_STEP_WEIGHTS)]
+        states = saved[5 + len(_STEP_WEIGHTS):]
+
+        def step(t, carry):
+            g_st, g_ws = carry          # the grads of step t's outputs
+            prev = states[4 * t - 4:4 * t] if t else (z0,) * 4
+            with torch.enable_grad():
+                ins = [u.detach().requires_grad_() for u in
+                       (*prev, *(w[:, t] for w in xw), *ws)]
+                out = _slstm_step(dict(zip(_STEP_WEIGHTS, ins[8:])),
+                                  ctx.num_heads, *ins[:8])
+                grads = torch.autograd.grad(
+                    out, ins, (g_st[0], g_st[1], g_st[2] + g_h[:, t],
+                               g_st[3]))
+            g_ws = grads[8:] if g_ws is None else tuple(
+                a + g for a, g in zip(g_ws, grads[8:]))
+            return (grads[:4], g_ws), grads[4:8]
+
+        s = xw[0].shape[1]
+        g_last = (g_c, g_n, torch.zeros_like(g_c), g_m)
+        (_, g_ws), g_x = _time_loop(step, (g_last, None),
+                                    range(s - 1, -1, -1))
+        g_x = [torch.stack([k[i] for k in reversed(g_x)], dim=1)
+               for i in range(4)]
+        return (None, None, *g_x, *g_ws)
+
+
 def slstm_apply(x, p, num_heads: int, *, return_state: bool = False):
     """x [B, S, D] → [B, S, D] (sequential over time)."""
-    b, s, d = x.shape
+    s = x.shape[1]
     # on a mesh the time loop's [B, D] state and inputs are whole along D
     # on every rank (only the batch cut): a step splits D into heads, and
     # a cut D's gradients would come back cut into pieces that are not
     # whole heads
     xw = [batch_cut_only(w) for w in _slstm_inputs(x, p)]
-    z0 = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-    st = (z0, z0, z0, z0)
-    hs = []
-    for t in range(s):
-        st = _maybe_checkpoint(partial(_slstm_step, p, num_heads), *st,
-                               *(w[:, t] for w in xw))
-        hs.append(st[2])
-    out = _slstm_out(torch.stack(hs, dim=1).to(x.dtype), p)
+    # the zero state as a step's input is: on a mesh cut as the inputs
+    # are, so that the first step runs the ops of every other step
+    z0 = torch.zeros_like(xw[0][:, 0])
+    ws = [p[k] for k in _STEP_WEIGHTS]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in xw + ws):
+        h, c, n, m = _SlstmLoop.apply(num_heads, z0, *xw, *ws)
+        st = (c, n, h[:, -1], m)
+    else:
+        def step(t, st):
+            st = _slstm_step(p, num_heads, *st, *(w[:, t] for w in xw))
+            return st, (st[2],)
+
+        st, hs = _time_loop(step, (z0,) * 4, range(s))
+        h = torch.stack([k[0] for k in hs], dim=1)
+    out = _slstm_out(h.to(x.dtype), p)
     if return_state:
         return out, _state(st)
     return out

@@ -761,14 +761,29 @@ FLASH_CASES = [   # (b, hq, hkv, sq, skv, d), options
     # the last key tile partial) and cross-attention (Sq ≠ Skv, no mask)
     ((1, 20, 20, 1500, 1500, 64), {"causal": False}),
     ((2, 20, 20, 37, 1500, 64), {"causal": False}),
+    # the hd-256 kernel (Gemma 3): 128-row blocks of two 64-row
+    # warpgroups.  Sq 1, 63, 64, 65, 127, 128 and 129 against Skv = 445,
+    # GQA groups 1 and 2; a window that starts mid-tile with softcap 50,
+    # Gemma's window and softcap, non-causal
+    ((1, 2, 2, 1, 445, 256), {}),
+    ((2, 4, 2, 63, 445, 256), {}),
+    ((1, 2, 2, 64, 445, 256), {}),
+    ((1, 4, 2, 65, 445, 256), {}),
+    ((1, 2, 2, 127, 445, 256), {}),
+    ((2, 4, 2, 128, 445, 256), {}),
+    ((1, 4, 2, 129, 445, 256), {}),
+    ((1, 4, 2, 445, 445, 256), {"window": 100, "softcap": 50.0}),
+    ((1, 2, 1, 300, 445, 256), {"window": 1024, "softcap": 50.0}),
+    ((1, 4, 4, 129, 445, 256), {"causal": False}),
+    ((1, 2, 1, 445, 445, 256), {"causal": False, "softcap": 50.0}),
 ]
 
 
 def _flash_kernel(dtype, d):
     """The kernel the wrapper must pick: tensor cores for bf16 at head
-    dims 64 and 128, SIMT otherwise."""
-    return ("tensor_core" if dtype == torch.bfloat16 and d in (64, 128)
-            else "simt")
+    dims 64, 128 and 256, SIMT otherwise."""
+    return ("tensor_core" if dtype == torch.bfloat16
+            and d in (64, 128, 256) else "simt")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -810,6 +825,36 @@ def test_flash_attention_kernel_fully_masked_rows_are_zero(card, dtype):
     tol = 3e-3 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got[:, :, 30:].float(),
                                want[:, :, 30:].float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_hd256_fully_masked_rows_are_zero(card, dtype):
+    """The same at hd 256 (the 128-row tensor-core kernel in bf16): Sq 200
+    over Skv 70, so the first 130 queries see no key — a whole 128-row
+    block, which loads no tile, and two rows of the next."""
+    assert fa.kernel_for(dtype, 256) == _flash_kernel(dtype, 256)
+    g = torch.Generator(device=card).manual_seed(2)
+    q, k, v = (torch.randn(s, generator=g, device=card).to(dtype)
+               for s in ((1, 2, 200, 256), (1, 1, 70, 256),
+                         (1, 1, 70, 256)))
+    got = fa.flash_attention(q, k, v, softcap=50.0)
+    want = ref.flash_attention_ref(q, k, v, softcap=50.0)
+    assert bool((got[:, :, :130] == 0).all())
+    atol, rtol = ref.flash_tolerance(want[:, :, 130:])
+    torch.testing.assert_close(got[:, :, 130:].float(),
+                               want[:, :, 130:].float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_flash_attention_tc_entry_rejects_other_head_dims(card):
+    """``repro_flash_attention_tc`` takes bf16 at head dims 64, 128 and
+    256 and refuses any other (the wrapper sends those to SIMT)."""
+    q = torch.zeros((1, 2, 8, 32), device=card, dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    with pytest.raises(RuntimeError):
+        _build.launch("flash_attention", "repro_flash_attention_tc",
+                      q.device, q, q, q, out, 1, 2, 2, 8, 8, 32, 1, 0,
+                      0.125, 0.0)
 
 
 def test_flash_attention_kernel_rejects(card):

@@ -132,6 +132,60 @@ def fake_runs():
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+# the repairs, in a process of their own: ``--ssm_chunk`` through the CLI
+# (C13), and the sLSTM time loop counted once and scaled by its trip count
+# against the step-by-step count on a small fake group (C12)
+_REPAIRS = r"""
+import json, os, sys, tempfile
+from dataclasses import replace
+from repro_torch.configs.base import ShapeConfig, get_config
+from repro_torch.launch.dryrun import fake_world, main
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.ml import xlstm
+from repro_torch.ml.model import ModelBundle, TrainConfig
+out = {"loops": {}}
+with fake_world(4):
+    mesh = make_local_mesh(2, 2, device="cpu")
+    cfg = replace(get_config("xlstm_1_3b").reduced(), num_layers=8)
+    mb = ModelBundle(cfg, mesh, train_cfg=TrainConfig(
+        remat="full", loss_chunk=16, zero1=True))
+    for kind in ("train", "prefill"):
+        shape = ShapeConfig("t", 64, 4, kind)
+        low = getattr(mb, f"lower_{kind}")(shape)     # counted once
+        out["loops"][f"{kind}:True"] = {
+            "cost": low.cost, "memory": low.memory,
+            "collectives": low.collectives}
+        # the same step with every sLSTM step run
+        counts_once, xlstm._loop_counter = xlstm._loop_counter, lambda: None
+        try:
+            low = getattr(mb, f"lower_{kind}")(shape)
+        finally:
+            xlstm._loop_counter = counts_once
+        out["loops"][f"{kind}:False"] = {
+            "cost": low.cost, "memory": low.memory,
+            "collectives": low.collectives}
+with tempfile.TemporaryDirectory() as tmp:
+    main(["--arch", "jamba_v0_1_52b", "--shape", "decode_32k",
+          "--multi_pod", "false", "--ssm_chunk", "128", "--out_dir", tmp])
+    out["chunk_cell"] = {
+        "files": os.listdir(tmp),
+        "record": json.load(open(os.path.join(
+            tmp, "jamba_v0_1_52b-decode_32k-pod.json")))}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def repair_runs():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", _REPAIRS], env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=TIMEOUT_S)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 # ------------------------------------------------------------ input_specs
 
 @pytest.mark.parametrize("arch,shape", CELLS)
@@ -227,3 +281,32 @@ def test_run_cell_record_has_the_reference_keys(fake_runs):
     assert rec["params"] == get_config("qwen1_5_0_5b").params_count()
     assert fake_runs["cell"]["files"] == \
         ["qwen1_5_0_5b-decode_32k-pod.json"]
+
+
+# ---------------------------------------------------------------- repairs
+
+def test_ssm_chunk_flag_records_a_cell(repair_runs):
+    """``--ssm_chunk 128`` (the reference's ``REPRO_SSM_CHUNK``) maps onto
+    ``ArchConfig.ssm_chunk``: a Jamba ``decode_32k`` cell runs through
+    ``main`` and records."""
+    row = repair_runs["chunk_cell"]
+    assert row["files"] == ["jamba_v0_1_52b-decode_32k-pod.json"]
+    rec = row["record"]
+    assert set(rec) == RECORD_KEYS
+    assert rec["cost"]["flops_per_device"] > 0
+    assert rec["memory"]["peak_bytes"] > 0
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_slstm_loop_counted_once_equals_step_by_step(repair_runs, kind):
+    """A reduced xLSTM (one cycle: 7 mLSTM + 1 sLSTM) at S = 64 on a 2 × 2
+    fake group: the sLSTM time loop counted once and scaled by its trip
+    count gives the step-by-step loop's FLOPs, bytes, collectives (count
+    and bytes a kind) and memory (argument, output, temporary and peak
+    bytes), exactly."""
+    once = repair_runs["loops"][f"{kind}:True"]
+    each = repair_runs["loops"][f"{kind}:False"]
+    assert once["cost"] == each["cost"]
+    assert once["collectives"] == each["collectives"]
+    assert once["memory"] == each["memory"]
+    assert once["cost"]["flops_per_device"] > 0

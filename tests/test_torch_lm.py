@@ -93,8 +93,15 @@ def _params(tree):
                     jax.tree_util.tree_map(np.asarray, tree))
 
 
+#: the port's config fields that stand for the reference's environment
+#: knobs, with the knob's default (``REPRO_SSM_CHUNK``)
+PORT_KNOBS = {"ssm_chunk": 256}
+
+
 def _fields(cfg):
-    return {f.name: getattr(cfg, f.name) for f in fields(cfg)}
+    """A config's fields, the port's knob fields left out."""
+    return {f.name: getattr(cfg, f.name) for f in fields(cfg)
+            if f.name not in PORT_KNOBS}
 
 
 def _rel(got, want):
@@ -123,6 +130,10 @@ FA_CASES = [
     # multiple of the block) and cross-attention (Sq ≠ Skv, no mask)
     ((1, 4, 4, 150, 150, 64), {"causal": False}),
     ((2, 4, 4, 37, 150, 64), {"causal": False}),
+    # Gemma 3's head dim 256 (the hd-256 tensor-core kernel's): GQA 4/2
+    # heads, Sq ≠ Skv, window 100 with softcap 50, and no window
+    ((1, 4, 2, 100, 300, 256), {"window": 100, "softcap": 50.0}),
+    ((1, 4, 2, 130, 200, 256), {"softcap": 50.0}),
 ]
 
 
@@ -223,10 +234,10 @@ def test_flash_attention_fully_masked_row_is_mean_of_v():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_dispatch(dtype, head_dim):
     """The CUDA kernel a call runs is a function of (dtype, head dim)
-    alone: bfloat16 at head dims 64 and 128 on the tensor cores, the rest
-    (float32 everywhere, bf16 at 16/32/256) on the SIMT kernel."""
+    alone: bfloat16 at head dims 64, 128 and 256 on the tensor cores, the
+    rest (float32 everywhere, bf16 at 16/32) on the SIMT kernel."""
     want = ("tensor_core" if dtype == torch.bfloat16
-            and head_dim in (64, 128) else "simt")
+            and head_dim in (64, 128, 256) else "simt")
     assert tfa.kernel_for(dtype, head_dim) == want
 
 
@@ -282,6 +293,8 @@ def test_configs_match_the_reference():
         assert _fields(got) == _fields(want), arch
         assert _fields(got.reduced()) == _fields(want.reduced()), arch
         assert got.params_count() == want.params_count()
+        for name, default in PORT_KNOBS.items():
+            assert getattr(got, name) == default, (arch, name)
 
 
 @pytest.mark.parametrize("theta", [1e4, 1e6])
@@ -474,6 +487,22 @@ def test_lm_prefill_decode_float32(arch):
     assert (_np(tl).argmax(-1) == _np(jl).argmax(-1)).all()
     for tl, jl in decode:
         assert _rel(tl, jl) < 2e-3
+
+
+def test_lm_gemma3_at_head_dim_256():
+    """Gemma 3 at narrow width with its own head dim, 256: one 5:1 cycle
+    of 6 layers (5 local with window 16, 1 global), 4 query / 2 KV heads,
+    d 64, float32 activations.  Prefill over 40 tokens (past the window:
+    the rolling caches wrap) and one decode step against the JAX LM with
+    the same parameters, at test_lm_prefill_decode_float32's bounds (1e-4
+    and 2e-3 of max |logit|)."""
+    jlm, jp, lm, tp = _pair("gemma3_12b", act_dtype="float32", num_layers=6,
+                            head_dim=256, num_kv_heads=2)
+    assert (lm.cfg.hd, lm.cfg.window) == (256, 16)
+    (tl, jl), (dl, djl) = _run(jlm, jp, lm, tp, _tokens(lm.cfg), steps=1)
+    assert _rel(tl, jl) < 1e-4
+    assert (_np(tl).argmax(-1) == _np(jl).argmax(-1)).all()
+    assert _rel(dl, djl) < 2e-3
 
 
 def test_lm_apply_float32():

@@ -218,6 +218,47 @@ def test_encode_matches_reference():
     assert _rel(got, want) < CELL_RTOL
 
 
+@pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "xlstm_1_3b"])
+def test_ssm_chunk_reaches_every_chunked_block(arch, monkeypatch):
+    """``ArchConfig.ssm_chunk`` (the reference's ``REPRO_SSM_CHUNK``)
+    reaches the Mamba and mLSTM chunk loops of the LM: a 150-token prefill
+    in chunks of 64 (three, the last partial; Jamba's kernel path one
+    ssm_scan a chunk, xLSTM's one mLSTM chunk each) gives the logits of
+    the default 256 (one chunk), and the reference's under
+    ``REPRO_SSM_CHUNK=64`` with the same parameters, within LOGIT_REL
+    (float32 activations)."""
+    from repro_torch.kernels import ops
+    jlm, jp, lm, tp = _pair(arch, act_dtype="float32")
+    assert lm.cfg.ssm_chunk == 256
+    tokens, _ = _inputs(lm.cfg, 2, 150)
+    tok = torch.from_numpy(tokens)
+    chunks = []
+    mlstm_chunk = TX._mlstm_chunk
+
+    def counted(*args):
+        chunks.append(args[2].shape[2])
+        return mlstm_chunk(*args)
+
+    monkeypatch.setattr(TX, "_mlstm_chunk", counted)
+    kinds = [lm.cfg.layer_kind(i) for i in range(lm.cfg.num_layers)]
+    got = {}
+    for chunk in (256, 64):
+        chunks.clear()
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            got[chunk], _ = LM(replace(lm.cfg, ssm_chunk=chunk)).prefill(
+                tp, tok)
+        n = -(-150 // chunk)
+        assert ops.launch_counts().get("ssm_scan", 0) == \
+            kinds.count("mamba") * n
+        assert len(chunks) == kinds.count("mlstm") * n
+    monkeypatch.setenv("REPRO_SSM_CHUNK", "64")
+    want, _ = jlm.prefill(jp, jnp.asarray(tokens))
+    assert _rel(got[64], got[256]) < LOGIT_REL
+    assert _rel(got[64], want) < LOGIT_REL
+    assert (_np(got[64]).argmax(-1) == _np(want).argmax(-1)).all()
+
+
 # -------------------------------------------------------------- train
 
 def _loss_fn(jlm, tc, tokens, labels, frames):
