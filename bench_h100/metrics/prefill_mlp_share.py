@@ -1,0 +1,9 @@
+"""The dense MLP tails (norm, gated MLP, residual): their share of the
+prefill, Σ device time of the port's ``mlp`` spans inside its
+``prefill`` spans over Σ device time of those prefills (the profiled
+half of a traced run), in %."""
+from bench_h100.harness.program import prefill_share
+
+
+def read(run):
+    return prefill_share(run, "mlp")

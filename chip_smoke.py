@@ -1649,19 +1649,51 @@ CARD_STREAM_FIRST = 12_000
 CARD_STREAM_FLUSH = 2_400
 
 
-def _card_busy(torch, prof, wall_ms, n_cards):
-    """Each card's busy ms (the profiler's device records as recorded)
-    and idle share over a ``torch.profiler`` window of ``wall_ms``."""
+def _union_ns(intervals) -> int:
+    """Length of the union of (start, end) ``intervals``: device records
+    that overlap (streams at work at once) count once."""
+    total, end = 0, None
+    for a, b in sorted(intervals):
+        if end is None or a >= end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _event_ns(e, what: str) -> int:
+    get = getattr(e, f"{what}_ns", None)
+    if get is not None:
+        return int(get())
+    return int(getattr(e, f"{what}_us")() * 1000)
+
+
+def _device_ms(prof):
+    """Each card's busy ms over a ``torch.profiler`` window: the union of
+    its device records (kernels, copies, sets; not the device-side copies
+    of profiler ranges), so that work on several streams at once counts
+    once and no card is busier than the window."""
     from torch.autograd import DeviceType
-    busy = [0.0] * n_cards
-    seen = False
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and 0 <= e.device_index < n_cards:
-            busy[e.device_index] += e.self_device_time_total / 1e3
-            seen = True
-    if not seen:
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue
+        a = _event_ns(e, "start")
+        per.setdefault(int(e.device_index()), []).append(
+            (a, a + _event_ns(e, "duration")))
+    return {d: _union_ns(v) / 1e6 for d, v in per.items()}
+
+
+def _card_busy(torch, prof, wall_ms, n_cards):
+    """Each card's busy ms (the union of its device records) and idle
+    share over a ``torch.profiler`` window of ``wall_ms``."""
+    per = _device_ms(prof)
+    if not per:
         return "not measured"
-    return [{"card": i, "busy_ms_raw": b, "idle_share": 1 - b / wall_ms}
+    busy = [per.get(i, 0.0) for i in range(n_cards)]
+    return [{"card": i, "busy_ms": b, "idle_share": 1 - b / wall_ms}
             for i, b in enumerate(busy)]
 
 
@@ -2969,15 +3001,14 @@ def _device_busy(torch, prof, wall_ms, launches, top=6):
     """Busy ms, idle share and top entries of a ``torch.profiler`` window,
     or "not measured" when it saw no device time.
 
+    Busy time is the union of the device records (:func:`_device_ms`).
     The profiler loses some device records (C5), so the port's kernels
-    are counted as ``device_ms`` counts them: each at its recorded time
-    scaled by its family's launches in the window (``launches``, the
-    wrappers' counters over the window) over the records of the family's
-    kernels that begin a launch.  PyTorch's own operations (copies,
-    matmuls, elementwise ops) have no counter: they add their recorded
-    sum as it is (``busy_ms_uncounted``).  ``kernel_records`` holds
-    each family's [records, launches]; ``device_busy_ms_raw`` the plain
-    sum of every record."""
+    add what their lost records would have taken (``busy_ms_lost``): a
+    family's recorded time scaled by its launches in the window
+    (``launches``, the wrappers' counters over the window) over the
+    records of the family's kernels that begin a launch, less the time
+    recorded.  ``kernel_records`` holds each family's [records,
+    launches]; ``device_busy_ms_raw`` the plain sum of every record."""
     from torch.autograd import DeviceType
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
@@ -2987,32 +3018,30 @@ def _device_busy(torch, prof, wall_ms, launches, top=6):
     family_of = {k: fam for fam, names in KERNEL_FAMILIES.items()
                  for k in names}
     fam_ms, fam_records = {}, {}
-    uncounted = 0.0
     for e in dev:
         name = _kernel_name(e.key)
-        ms = e.self_device_time_total / 1e3
         fam = family_of.get(name)
         if fam is None:
-            uncounted += ms
             continue
-        fam_ms[fam] = fam_ms.get(fam, 0.0) + ms
+        fam_ms[fam] = fam_ms.get(fam, 0.0) + e.self_device_time_total / 1e3
         if name not in FOLLOWERS:
             fam_records[fam] = fam_records.get(fam, 0) + e.count
-    counted, records = 0.0, {}
+    lost, records = 0.0, {}
     for fam, ms in fam_ms.items():
         n = sum(launches.get(c, 0) for c in fam)
         r = fam_records.get(fam, 0)
-        counted += ms * (n / r if r and n else 1.0)
+        if r and n > r:
+            lost += ms * (n / r - 1.0)
         records["/".join(fam)] = [r, n]
     for fam in KERNEL_FAMILIES:        # launched, but every record lost
         n = sum(launches.get(c, 0) for c in fam)
         if n and fam not in fam_ms:
             records["/".join(fam)] = [0, n]
-    busy_ms = counted + uncounted
+    busy_ms = sum(_device_ms(prof).values()) + lost
     entries = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
     return {"device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms,
-            "busy_ms_uncounted": uncounted,
+            "busy_ms_lost": lost,
             "device_busy_ms_raw": sum(e.self_device_time_total
                                       for e in dev) / 1e3,
             "kernel_records": records,
@@ -3163,22 +3192,24 @@ def _placed_as(tree, specs, mesh):
 
 
 def _nccl_busy(torch, prof, wall_ms):
-    """This rank's card over a profiler window: busy ms, idle share and the
-    share of device time in NCCL kernels."""
+    """This rank's card over a profiler window: busy ms (the union of its
+    device records), idle share and the share of the summed device time
+    in NCCL kernels."""
     from torch.autograd import DeviceType
-    busy = nccl = 0.0
+    total = nccl = 0.0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
-        busy += ms
+        total += ms
         if "nccl" in e.key.lower():
             nccl += ms
-    if busy == 0.0:
+    busy = sum(_device_ms(prof).values())
+    if busy == 0.0 or total == 0.0:
         return {"busy_ms": "not measured", "idle_share": "not measured",
                 "nccl_share": "not measured"}
     return {"busy_ms": busy, "idle_share": 1 - busy / wall_ms,
-            "nccl_share": nccl / busy}
+            "nccl_share": nccl / total}
 
 
 def _one_device(torch, cfg, tc, batch):

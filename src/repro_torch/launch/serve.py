@@ -28,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..configs.base import ArchConfig, get_config
 from ..ml.transformer import LM
 
@@ -58,7 +59,14 @@ class Server:
         self.params = self.lm.init(seed, device=self.device)
         self.max_batch = max_batch
         self.max_len = max_len
-        self.stats = {"prefills": 0, "decode_steps": 0, "tokens_out": 0}
+        #: host counters: prefill calls, decode steps, the prompts' own
+        #: tokens, the left-padded positions of the prefills, and the
+        #: generated tokens the callers keep (all ``generate_batch``
+        #: returns, less what ``serve`` cuts past a request's ``max_new``)
+        self.stats = {"prefills": 0, "decode_steps": 0, "prompt_tokens": 0,
+                      "padded_positions": 0, "tokens_out": 0}
+        #: the port's spans and counters (``repro_torch.tracing``)
+        self.tracing = tracing
 
     # ------------------------------------------------------------- batch
     @torch.inference_mode()
@@ -67,24 +75,28 @@ class Server:
         """Static batch generation (prompts left-padded to a common
         length)."""
         b = len(prompts)
-        s = max(p.shape[0] for p in prompts)
-        toks = np.zeros((b, s), np.int32)
-        for i, p in enumerate(prompts):
-            toks[i, s - p.shape[0]:] = p      # left-pad
-        logits, caches = self.lm.prefill(
-            self.params, torch.from_numpy(toks).to(self.device))
-        self.stats["prefills"] += b
-        cur = torch.argmax(logits, dim=-1).to(torch.int32)
-        outs = [[t] for t in cur[:, 0].tolist()]
-        for t in range(max_new - 1):
-            logits, caches = self.lm.decode_step(self.params, cur, caches,
-                                                 s + t)
-            self.stats["decode_steps"] += 1
+        with tracing.span("batch", self.device, rows=b):
+            s = max(p.shape[0] for p in prompts)
+            toks = np.zeros((b, s), np.int32)
+            for i, p in enumerate(prompts):
+                toks[i, s - p.shape[0]:] = p      # left-pad
+            n = sum(p.shape[0] for p in prompts)
+            self.stats["prefills"] += 1
+            self.stats["prompt_tokens"] += n
+            self.stats["padded_positions"] += b * s - n
+            logits, caches = self.lm.prefill(
+                self.params, torch.from_numpy(toks).to(self.device))
             cur = torch.argmax(logits, dim=-1).to(torch.int32)
-            for o, tok in zip(outs, cur[:, 0].tolist()):
-                o.append(tok)
-        self.stats["tokens_out"] += b * max_new
-        return outs
+            outs = [[t] for t in cur[:, 0].tolist()]
+            for t in range(max_new - 1):
+                logits, caches = self.lm.decode_step(self.params, cur,
+                                                     caches, s + t)
+                self.stats["decode_steps"] += 1
+                cur = torch.argmax(logits, dim=-1).to(torch.int32)
+                for o, tok in zip(outs, cur[:, 0].tolist()):
+                    o.append(tok)
+            self.stats["tokens_out"] += b * max_new
+            return outs
 
     # ----------------------------------------------- continuous batching
     def serve(self, requests: List[Request], tick_limit: int = 10_000
@@ -107,6 +119,7 @@ class Server:
                 for r, o in zip(batch_prompts, outs):
                     r.out = o[:r.max_new]
                     r.done = True
+                    self.stats["tokens_out"] -= len(o) - len(r.out)
         return requests
 
 

@@ -50,6 +50,7 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import tracing
 from ..configs.base import ArchConfig, ShapeConfig
 from ..kernels import _build
 from . import sharding as sh
@@ -184,6 +185,8 @@ class ModelBundle:
         self._use_placements = None
         if mesh is not None and self.train_cfg.fsdp:
             self.lm.gather = self._gather
+        #: the port's spans and counters (``repro_torch.tracing``)
+        self.tracing = tracing
 
     # ------------------------------------------------------------ shapes
     def init_params(self, seed: int = 0):
@@ -387,7 +390,7 @@ class ModelBundle:
         tc = self.train_cfg
         lr_fn = cosine_schedule(tc.lr, tc.warmup, tc.total_steps)
 
-        def train_step(params, opt_state, batch):
+        def step(params, opt_state, batch):
             total, loss, aux, grads = self.loss_and_grads(params, batch)
             params = tree_map(lambda t: t.detach(), params)
             new_opt = {}
@@ -418,6 +421,10 @@ class ModelBundle:
             if self.mesh is not None:
                 metrics = {k: _full(v) for k, v in metrics.items()}
             return new_params, new_opt, metrics
+
+        def train_step(params, opt_state, batch):
+            with tracing.span("train.step", self.device):
+                return step(params, opt_state, batch)
 
         return train_step
 

@@ -18,7 +18,9 @@ experts' products are each rank's experts, or its slice of F summed over
 ``model``), their weight gradients partial over the batch axes.
 
 Capacity C = max(k, f·S·k/E) per group.  Aux losses: load-balance
-(Switch) + router z-loss.
+(Switch) + router z-loss.  While tracing is active the routing counts
+``moe.assigned``, ``moe.dispatched`` and ``moe.slots``
+(``repro_torch.tracing``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from .layers import dense_init, gelu, silu
 from .sharding import (active_mesh, batch_cut_only, batch_spec, constrain,
                        is_dtensor, mesh_sizes, on_pieces, placements)
@@ -73,7 +76,12 @@ def _route(tok, router, *, top_k: int, cap: int):
         used = used + disp.sum(dim=1)
         gk = gk * (1.0 - onehot)
 
-    return logits, gates, combine, (combine > 0).to(cdt)
+    dispatch = combine > 0
+    if tracing.active():
+        tracing.count("moe.assigned", g * sg * top_k)
+        tracing.count("moe.dispatched", dispatch.sum())
+        tracing.count("moe.slots", g * e * cap)
+    return logits, gates, combine, dispatch.to(cdt)
 
 
 def _route_on_ranks(tok, router, **kw):

@@ -51,6 +51,11 @@ brings each block's parameters to their model-axis placements inside
 the block's checkpoint — the per-layer gather.  With ``impl="kernel"``
 the prefill reaches the kernels on each rank's pieces (``attention``,
 ``mamba``); the caches are filled and written in their own placements.
+
+While tracing is active (``repro_torch.tracing``) ``prefill`` and
+``decode_step`` record a span each, and every block two inside it: its
+mixer half (norm, mixer, residual) named by its kind, and its tail
+(norm, MLP or MoE, residual) named ``mlp`` or ``moe``.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import tracing
 from ..configs.base import ArchConfig
 from . import attention as A
 from . import mamba as Mb
@@ -242,15 +248,18 @@ def _whole_seq(h):
 
 
 def _mlp_tail(cfg: ArchConfig, x, p):
+    """A block's tail (norm, MLP or MoE, residual), in a span of its
+    kind."""
     if "mlp" not in p and "moe" not in p:
         return x, None
-    h2 = _whole_seq(_norm(cfg)(x, p["norm2"], cfg.norm_eps))
-    if "moe" in p:
-        mo, aux = moe_apply(h2, p["moe"], top_k=cfg.moe_top_k,
-                            capacity_factor=cfg.moe_capacity_factor,
-                            act=cfg.act, group_size=cfg.moe_group_size)
-        return x + mo, aux
-    return x + mlp_apply(h2, p["mlp"], cfg.act), None
+    with tracing.span("moe" if "moe" in p else "mlp", x.device):
+        h2 = _whole_seq(_norm(cfg)(x, p["norm2"], cfg.norm_eps))
+        if "moe" in p:
+            mo, aux = moe_apply(h2, p["moe"], top_k=cfg.moe_top_k,
+                                capacity_factor=cfg.moe_capacity_factor,
+                                act=cfg.act, group_size=cfg.moe_group_size)
+            return x + mo, aux
+        return x + mlp_apply(h2, p["mlp"], cfg.act), None
 
 
 def _project_cross_kv(enc_out, p_attn, spec):
@@ -272,8 +281,22 @@ def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
     (when ``return_state``), feeding prefill cache construction.
     """
     kind, spec, _, _ = _slot_info(cfg, slot, decoder=decoder)
-    nrm = _norm(cfg)
     in_dtype = x.dtype
+    with tracing.span(kind, x.device):
+        x, extras = _mixer_apply(cfg, kind, spec, x, p, positions, enc_out,
+                                 impl, return_state)
+    x, aux = _mlp_tail(cfg, x, p)
+    if aux is None:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = {"load_balance": zero, "router_z": zero}
+    return x.to(in_dtype), aux, extras
+
+
+def _mixer_apply(cfg: ArchConfig, kind: str, spec, x, p, positions,
+                 enc_out, impl: str, return_state: bool):
+    """A block's mixer half over the full sequence (norm, mixer,
+    residual) → (x, extras)."""
+    nrm = _norm(cfg)
     h = _whole_seq(nrm(x, p["norm1"], cfg.norm_eps))
     extras = None
     if kind == "attn":
@@ -309,19 +332,25 @@ def _block_apply(cfg: ArchConfig, slot: int, x, p, positions, *,
         else:
             y = cell(h, p["cell"], cfg.num_heads)
         x = x + y
-    x, aux = _mlp_tail(cfg, x, p)
-    if aux is None:
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        aux = {"load_balance": zero, "router_z": zero}
-    return x.to(in_dtype), aux, extras
+    return x, extras
 
 
 def _block_decode(cfg: ArchConfig, slot: int, x, p, cache, pos: int):
     """Single-token step; writes the new position or state into ``cache``
     (views of the stacked caches) in place and returns x."""
     kind, spec, _, window = _slot_info(cfg, slot)
-    nrm = _norm(cfg)
     in_dtype = x.dtype
+    with tracing.span(kind, x.device):
+        x = _mixer_decode(cfg, kind, spec, window, x, p, cache, pos)
+    x, _ = _mlp_tail(cfg, x, p)
+    return x.to(in_dtype)
+
+
+def _mixer_decode(cfg: ArchConfig, kind: str, spec, window, x, p, cache,
+                  pos: int):
+    """A block's mixer half for one token (norm, mixer, residual),
+    writing the cache in place → x."""
+    nrm = _norm(cfg)
     h = nrm(x, p["norm1"], cfg.norm_eps)
     if kind == "attn":
         b = x.shape[0]
@@ -356,8 +385,7 @@ def _block_decode(cfg: ArchConfig, slot: int, x, p, cache, pos: int):
         for name, t in new.items():
             _copy_into(cache[name], t)
         x = x + y
-    x, _ = _mlp_tail(cfg, x, p)
-    return x.to(in_dtype)
+    return x
 
 
 # ---------------------------------------------------------------- model
@@ -593,40 +621,44 @@ class LM:
     def decode_step(self, p, tokens, caches, pos: int):
         """tokens [B, 1], caches (stacked), pos int → (logits [B, 1, V],
         caches).  The caches are updated in place and returned."""
-        cfg = self.cfg
-        positions = _positions_for(cfg, tokens.shape[0], 1, pos,
-                                   tokens.device)
-        x = self._embed(p, tokens, positions)
-        for g in range(self.groups):
-            grp = _index(p["blocks"], g)
-            for sl in range(self.cyc):
-                key = f"slot{sl}"
-                x = _block_decode(cfg, sl, x, grp[key],
-                                  _index(caches[key], g), pos)
-        x = _norm(cfg)(x, p["final_norm"], cfg.norm_eps)
-        return self._logits(p, x[:, -1:, :]), caches
+        with tracing.span("decode", tokens.device, rows=tokens.shape[0],
+                          pos=pos):
+            cfg = self.cfg
+            positions = _positions_for(cfg, tokens.shape[0], 1, pos,
+                                       tokens.device)
+            x = self._embed(p, tokens, positions)
+            for g in range(self.groups):
+                grp = _index(p["blocks"], g)
+                for sl in range(self.cyc):
+                    key = f"slot{sl}"
+                    x = _block_decode(cfg, sl, x, grp[key],
+                                      _index(caches[key], g), pos)
+            x = _norm(cfg)(x, p["final_norm"], cfg.norm_eps)
+            return self._logits(p, x[:, -1:, :]), caches
 
     def prefill(self, p, tokens, frames=None):
         """Prompt forward → (last-token logits [B, 1, V], filled
         caches).  An encoder-decoder config needs ``frames``."""
-        cfg = self.cfg
         b, s = tokens.shape
-        positions = _positions_for(cfg, b, s, device=tokens.device)
-        x = self._embed(p, tokens, positions)
-        enc_out = self._enc_out(p, frames)
-        extras = {f"slot{sl}": [] for sl in range(self.cyc)}
-        for g in range(self.groups):
-            grp = _index(p["blocks"], g)
-            for sl in range(self.cyc):
-                x, _, ex = _block_apply(cfg, sl, x, grp[f"slot{sl}"],
-                                        positions, enc_out=enc_out,
-                                        impl=self.impl, return_state=True)
-                extras[f"slot{sl}"].append(ex)
-        x = _norm(cfg)(x, p["final_norm"], cfg.norm_eps)
-        logits = self._logits(p, x[:, -1:, :])
-        enc_len = None if enc_out is None else enc_out.shape[1]
-        return logits, self._caches_from_prefill(extras, s, b, x.device,
-                                                 enc_len)
+        with tracing.span("prefill", tokens.device, batch=b, seq=s):
+            cfg = self.cfg
+            positions = _positions_for(cfg, b, s, device=tokens.device)
+            x = self._embed(p, tokens, positions)
+            enc_out = self._enc_out(p, frames)
+            extras = {f"slot{sl}": [] for sl in range(self.cyc)}
+            for g in range(self.groups):
+                grp = _index(p["blocks"], g)
+                for sl in range(self.cyc):
+                    x, _, ex = _block_apply(cfg, sl, x, grp[f"slot{sl}"],
+                                            positions, enc_out=enc_out,
+                                            impl=self.impl,
+                                            return_state=True)
+                    extras[f"slot{sl}"].append(ex)
+            x = _norm(cfg)(x, p["final_norm"], cfg.norm_eps)
+            logits = self._logits(p, x[:, -1:, :])
+            enc_len = None if enc_out is None else enc_out.shape[1]
+            return logits, self._caches_from_prefill(extras, s, b, x.device,
+                                                     enc_len)
 
     def _caches_from_prefill(self, extras, s: int, b: int, device,
                              enc_len: Optional[int] = None,

@@ -618,7 +618,18 @@ def test_server_serve_matches_reference_float32(arch):
     got = srv.serve(_requests(tserve.Request, srv.cfg.vocab_size))
     assert all(r.done and len(r.out) == 6 for r in got)
     assert [r.out for r in got] == [r.out for r in want]
-    assert srv.stats == ref.stats
+    # the reference counts prefill rows and every row's ``max_new``; the
+    # port counts prefill calls (6 requests at 4 a batch: 2), the tokens
+    # the requests keep (here every row's 6) and the prompts' own and
+    # padded positions
+    assert srv.stats["decode_steps"] == ref.stats["decode_steps"]
+    assert srv.stats["prefills"] == 2 and ref.stats["prefills"] == 6
+    assert srv.stats["tokens_out"] == ref.stats["tokens_out"] \
+        == sum(len(r.out) for r in got)
+    lens = [r.prompt.shape[0] for r in got]
+    assert srv.stats["prompt_tokens"] == sum(lens)
+    assert srv.stats["padded_positions"] == 4 * max(lens[:4]) \
+        + max(lens[4:]) * 2 - sum(lens)
 
 
 def test_server_launches_flash_per_attention_layer():
