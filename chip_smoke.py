@@ -40,8 +40,8 @@ around it: it imports nothing of the JAX package.  Phases:
    layers, 6 × (7 mLSTM + 1 sLSTM), plain PyTorch cells) — with seeded
    random bf16 weights, answering 8 requests (prompts of 64-512 random
    tokens, 16 new tokens each): flash_attention launches = attention
-   layers × prefills and ssm_scan launches = Mamba layers × 256-token
-   chunks a prefill (0 and 0 for xLSTM), no other kernel; then prefill
+   layers × prefills and selective_scan launches = Mamba layers ×
+   prefills (0 and 0 for xLSTM), no other kernel; then prefill
    and decode times, peak memory and the device's idle share of one warm
    ``generate_batch`` (xLSTM: of its 15 decode steps; the profiler takes
    ~90 s to process the sLSTM loop of a prefill); then, in float32 with
@@ -92,8 +92,8 @@ around it: it imports nothing of the JAX package.  Phases:
    train_loop`` on SmolLM-360M at full width and depth (float32 params,
    ``remat="full"``, batch 8 × 512 tokens from ``TokenPipeline``, 6 steps,
    checkpoints every 3), a resume from step 3 repeating steps 3–5 and the
-   final params and optimizer state bit for bit, 0 flash_attention /
-   ssm_scan launches; three reduced Jamba steps (float32 activations) on
+   final params and optimizer state bit for bit, no kernel
+   launched; three reduced Jamba steps (float32 activations) on
    the card against the CPU from the same params; ``geo.denoise.snap_path`` for 1,000 waypoints × 2,000 segments
    on the card equal to the CPU's path;
 3h. cards (with two CUDA devices or more; with one it prints a line
@@ -271,6 +271,8 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 SCALAR_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate (data sheet)
 BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor rate (data sheet)
+# H100 SXM exps (MUFU.EX2): 16 a clock an SM against 256 FP32 operations
+SFU_OPS_PER_S = SCALAR_OPS_PER_S / 16
 WAVE = 8
 WARM_RUNS = 5                  # warm wall time: the median of these
 SCALE = 20.0
@@ -312,6 +314,10 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:137"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:63"),
+    # no TPU kernel of its own: the chunk passes of the reference's Mamba
+    # layer (exp, (dt·x)·B, y = h·C) fused with row 10's scan
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/ml/mamba.py:102"),
 }
 #: the port's device kernels, by their function names in csrc/*.cu, under
 #: the launch counters of the wrappers that run them: each counted launch
@@ -329,10 +335,12 @@ KERNEL_FAMILIES = {
     ("flash_attention",): ("flash_simt_kernel", "flash_tc_kernel",
                            "flash_wide_kernel"),
     ("ssm_scan",): ("ssm_scan_kernel",),
+    ("selective_scan",): ("selective_scan_kernel",),
 }
 FOLLOWERS = {"seg_combine_kernel"}
-#: kernels no engine path launches (held and timed in phase 4 only)
-OFF_PATH = {"bitset_binary"}
+#: kernels no main path launches (held and timed in phase 4 only): row 8,
+#: and row 10, whose Mamba layer launches the fused selective_scan
+OFF_PATH = {"bitset_binary", "ssm_scan"}
 #: refine wrappers whose recorded inputs are kept per output mode
 REFINES = ("refine_tracks_batched", "refine_tracks_multi", "refine_tracks")
 SERVE_BATCH = 16
@@ -345,9 +353,13 @@ LM_REQUESTS = 8
 LM_MAX_BATCH = 4
 LM_MAX_NEW = 16
 LM_PROMPT_LENS = (64, 512)
-#: Mamba chunk length (mamba_apply's default): ssm_scan launches a chunk
+#: Mamba chunk length (mamba_apply's default): the unfused chain's chunk
+#: that phase 4 times the fused kernel against, and row 10's call there
 LM_SSM_CHUNK = 256
-#: prefill↔decode consistency: batch and prompt length (two ssm chunks)
+#: phase 4's larger selective_scan call: the benchmark's Jamba prefill
+#: [batch, positions] (the recorded call tiled)
+SELECTIVE_LARGE = (16, 2048)
+#: prefill↔decode consistency: batch and prompt length
 LM_CHECK_SHAPE = (2, 300)
 #: and its bound: relative to max |logit|, as tests/test_models.py holds
 #: the JAX package (the decode caches are bf16 in both packages)
@@ -365,8 +377,11 @@ WHISPER_FRAMES = (4, 1500)
 WHISPER_PROMPT_LENS = (4, 224)
 #: kernel vs plain version: flash_attention within ``ref.flash_tolerance``
 #: of the output compared (an ulp of the element and of the largest element
-#: in bf16); ssm_scan 3e-4, as the JAX package holds its kernels
+#: in bf16); ssm_scan 3e-4, as the JAX package holds its kernels;
+#: selective_scan against the unfused chain within 1e-5 of max |y| (and
+#: of max |h_final|): the same float32 operations but y's N-term sum
 SSM_TOL = 3e-4
+SELECTIVE_REL = 1e-5
 #: the flash kernels' key tile (kBK in flash_attention.cu): a non-causal
 #: call with a partial last tile also checks that the bound rejects a
 #: result without that tile
@@ -1278,11 +1293,36 @@ def main(require_cards: int = 1) -> int:
                       "outside, max shift "
                       f"{row.get('tail_tile_dropped_max_shift')})")
         elif name == "ssm_scan":
-            a, bx, h0 = lm_inputs["ssm_scan"]
-            wave = measure(name, *ssm_case(torch, a, bx, h0), 20, 2)
+            # off the main path: the first chunk of the recorded Mamba
+            # layer's chain, [B, LM_SSM_CHUNK, dI·N]
+            dt, x, bm, _, A = lm_inputs["selective_scan"]
+            b_, di_, n_ = dt.shape[0], dt.shape[2], A.shape[1]
+            dc = dt[:, :LM_SSM_CHUNK].float()
+            a = torch.exp(dc[..., None] * A).reshape(b_, -1, di_ * n_)
+            bx = ((dc * x[:, :LM_SSM_CHUNK].float())[..., None]
+                  * bm[:, :LM_SSM_CHUNK].float()[:, :, None, :]).reshape(
+                      b_, -1, di_ * n_)
+            del dc
+            wave = measure(name, *ssm_case(torch, a, bx, None), 20, 2)
             la, lbx = tile(a, 4, 1), tile(bx, 4, 1)
-            large = measure(name, *ssm_case(torch, la, lbx, h0), 10, 1)
+            large = measure(name, *ssm_case(torch, la, lbx, None), 10, 1)
             shape, lshape = list(a.shape), list(la.shape)
+            del a, bx, la, lbx
+            entry.update(on_main_path=False)
+        elif name == "selective_scan":
+            args = lm_inputs["selective_scan"]
+            wave = measure(name, *selective_case(torch, *args), 20, 2,
+                           SFU_OPS_PER_S)
+            lb, ls = SELECTIVE_LARGE
+            reps_b = -(-lb // args[0].shape[0])
+            reps_s = -(-ls // args[0].shape[1])
+            largs = tuple(tile(tile(t, reps_b, 0), reps_s, 1)[:lb, :ls]
+                          .contiguous() for t in args[:4]) + (args[4],)
+            large = measure(name, *selective_case(torch, *largs), 10, 1,
+                            SFU_OPS_PER_S)
+            shape, lshape = list(args[0].shape) + [args[4].shape[1]], \
+                list(largs[0].shape) + [args[4].shape[1]]
+            del largs
         elif name == "bitset_binary":
             # on no engine path: two shard bitmaps of the retry phase
             stack = captured["bitmap_intersect"][1][0]
@@ -2239,6 +2279,60 @@ def ssm_case(torch, a, bx, h0):
             2 * a.numel())
 
 
+def _unfused_chain(torch, dt, x, bm, cm, A):
+    """The Mamba layer's selective scan as it ran before the fused kernel:
+    a chunk of LM_SSM_CHUNK steps at a time, exp(dt·A) and (dt·x)·B over
+    [B, c, dI, N] in float32, row 10 (``ssm_scan``) from the last chunk's
+    state, y = Σ_n h·C → (y, h_final)."""
+    from repro_torch.kernels import ssm_scan as ssm_kernel
+    b, s, di = dt.shape
+    n = A.shape[1]
+    h, ys = torch.zeros((b, di * n), device=dt.device), []
+    for c0 in range(0, s, LM_SSM_CHUNK):
+        cut = slice(c0, c0 + LM_SSM_CHUNK)
+        dc = dt[:, cut].float()
+        cl = dc.shape[1]
+        a = torch.exp(dc[..., None] * A)
+        bx = (dc * x[:, cut].float())[..., None] \
+            * bm[:, cut].float()[:, :, None, :]
+        hs, h = ssm_kernel.ssm_scan(a.reshape(b, cl, di * n),
+                                    bx.reshape(b, cl, di * n), h)
+        del a, bx
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs.view(b, cl, di, n),
+                               cm[:, cut].float()))
+    return torch.cat(ys, dim=1), h.view(b, di, n)
+
+
+def selective_case(torch, dt, x, bm, cm, A):
+    """The selective_scan case for ``measure``, against the unfused chain
+    (:func:`_unfused_chain`, timed as its plain version; no library call
+    computes the scan).  Bound: dt, x, B, C read once, y and h_final
+    written once, A read once; against B·L·dI·N exps at the card's SFU
+    rate (the multiply-adds, 4 a state element and step, take less at
+    the FP32 rate)."""
+    from repro_torch.kernels import selective_scan as sel_kernel
+
+    def compare(g, w):
+        err = 0.0
+        for name, a, b in zip(("y", "h_final"), g, w):
+            d_ = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            if not d_ <= SELECTIVE_REL * scale:
+                fail(f"selective_scan {list(dt.shape)}: {name} differs "
+                     f"from the unfused chain by {d_} (max |{name}| "
+                     f"{scale})")
+            err = max(err, d_)
+        return err
+
+    b, s, di = dt.shape
+    n = A.shape[1]
+    nbytes = (dt.element_size() * (2 * b * s * di + 2 * b * s * n)
+              + 4 * (di * n + b * s * di + b * di * n))
+    return (lambda: sel_kernel.selective_scan(dt, x, bm, cm, A),
+            lambda: _unfused_chain(torch, dt, x, bm, cm, A), None, compare,
+            nbytes, b * s * di * n)
+
+
 def _pad_left(np, prompts):
     """Prompts left-padded with token 0 to a common length, as
     ``Server.generate_batch`` pads them → [B, S] int32."""
@@ -2262,9 +2356,9 @@ def _flash_key(cname, args, kw):
 def _record_inputs(torch, inputs, cname, run):
     """``run()`` with the kernels' wrappers recording their inputs: per
     flash_attention mode (``_flash_key``) the largest q, and the largest
-    ssm_scan call."""
+    selective_scan call (dt, x, B, C, A)."""
     from repro_torch.kernels import flash_attention as fa_kernel
-    from repro_torch.kernels import ssm_scan as ssm_kernel
+    from repro_torch.kernels import selective_scan as sel_kernel
 
     def recorder(key, fn):
         def call(*args, **kw):
@@ -2277,20 +2371,18 @@ def _record_inputs(torch, inputs, cname, run):
             else:
                 best = inputs[key]
                 if best is None or best[0].numel() <= args[0].numel():
-                    inputs[key] = tuple(
-                        a.clone() if a is not None else None
-                        for a in (args + (None,) * 3)[:3])
+                    inputs[key] = tuple(a.clone() for a in args[:5])
             return fn(*args, **kw)
         return call
 
-    orig = (fa_kernel.flash_attention, ssm_kernel.ssm_scan)
+    orig = (fa_kernel.flash_attention, sel_kernel.selective_scan)
     fa_kernel.flash_attention = recorder("flash_attention", orig[0])
-    ssm_kernel.ssm_scan = recorder("ssm_scan", orig[1])
+    sel_kernel.selective_scan = recorder("selective_scan", orig[1])
     try:
         with torch.inference_mode():
             run()
     finally:
-        fa_kernel.flash_attention, ssm_kernel.ssm_scan = orig
+        fa_kernel.flash_attention, sel_kernel.selective_scan = orig
 
 
 def _lm_consistency(torch, np, cname, cfg, rng, frames=None):
@@ -2352,7 +2444,7 @@ def lm_phase(torch, np, totals):
 
     Adds each kernel's launches in the counted runs to ``totals`` and
     returns the inputs the kernels got there (the largest flash_attention
-    call per configuration and mode, the largest ssm_scan call),
+    call per configuration and mode, the largest selective_scan call),
     recorded in one more prefill after the timed runs."""
     from dataclasses import replace
     from repro_torch.configs import get_config
@@ -2369,11 +2461,12 @@ def lm_phase(torch, np, totals):
                                     _transcribed),
                # full width and depth: 8.93B params, 17.87 GB in bf16
                "gemma3_12b": (get_config("gemma3_12b"), _served)}
-    inputs = {"flash_attention": {}, "ssm_scan": None}
+    inputs = {"flash_attention": {}, "selective_scan": None}
     expected = set()
     for cname, (cfg, start) in configs.items():
         expected |= _lm_config(torch, np, cname, cfg, start, totals, inputs)
-    if inputs["ssm_scan"] is None or set(inputs["flash_attention"]) \
+    if inputs["selective_scan"] is None \
+            or set(inputs["flash_attention"]) \
             != expected:
         fail(f"lm: the kernels' inputs were not recorded: "
              f"{sorted(inputs['flash_attention'])} for {sorted(expected)}")
@@ -2399,8 +2492,7 @@ def _served(torch, np, cfg):
         batches = [lens[i:i + LM_MAX_BATCH]
                    for i in range(0, LM_REQUESTS, LM_MAX_BATCH)]
         need = {"flash_attention": kinds.count("attn") * len(batches),
-                "ssm_scan": kinds.count("mamba") * sum(
-                    math.ceil(int(max(b)) / LM_SSM_CHUNK) for b in batches)}
+                "selective_scan": kinds.count("mamba") * len(batches)}
 
         def run():
             srv.serve(reqs)
@@ -2477,7 +2569,7 @@ def _transcribed(torch, np, cfg):
         return {"run": run, "generate": generate, "toks": toks, "record": toks,
                 "kw": {"frames": frames},
                 "need": {"flash_attention": cfg.encoder_layers
-                         + 2 * cfg.num_layers, "ssm_scan": 0}}
+                         + 2 * cfg.num_layers, "selective_scan": 0}}
 
     return lm, params, plan
 
@@ -3874,8 +3966,7 @@ def _mesh_serve_row(torch, np, dist, row, mesh, dev, ref):
     need = {"flash_attention": len(batches) * (
                 kinds.count("attn") * (2 if cfg.encoder_layers else 1)
                 + cfg.encoder_layers),
-            "ssm_scan": kinds.count("mamba") * sum(
-                math.ceil(t.shape[1] / LM_SSM_CHUNK) for t in batches)}
+            "selective_scan": kinds.count("mamba") * len(batches)}
     # the counted run: every batch's prefill and 15 greedy decode steps
     _build.reset_kernel_launches()
     dist.barrier()

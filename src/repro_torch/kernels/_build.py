@@ -68,6 +68,7 @@ SOURCES: Dict[str, Dict[str, str]] = {
     "flash_attention": {"repro_flash_attention_simt": "ppppiiiiiiiiiffp",
                         "repro_flash_attention_tc": "ppppiiiiiiiiffp"},
     "ssm_scan": {"repro_ssm_scan": "pppppiilp"},
+    "selective_scan": {"repro_selective_scan": "ppppppppiiiiiip"},
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

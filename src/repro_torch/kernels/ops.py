@@ -26,14 +26,15 @@ from . import fused as _fused
 from . import merge as _merge
 from . import refine as _refine
 from . import segment_agg as _seg
+from . import selective_scan as _sel
 from . import ssm_scan as _ssm
 
 __all__ = ["bitmap_binary", "bitmap_intersect", "bitmap_intersect_batched",
            "compact", "compact_batched", "segment_agg", "refine_tracks",
            "refine_tracks_batched", "refine_tracks_multi", "run_wave_fused",
            "run_wave_fused_multi", "postings_bitmap", "segment_hll",
-           "merge_partials", "flash_attention",
-           "ssm_scan", "launch_counts", "reset_launch_counts",
+           "merge_partials", "flash_attention", "ssm_scan",
+           "selective_scan", "launch_counts", "reset_launch_counts",
            "record_launch"]
 
 
@@ -211,3 +212,11 @@ def ssm_scan(a, bx, h0=None):
     (h [B, L, D], h_final [B, D])."""
     record_launch("ssm_scan")
     return _ssm.ssm_scan(a, bx, h0)
+
+
+def selective_scan(dt, x, b, c, A, h0=None):
+    """A Mamba layer's selective scan in one launch: dt, x [B, L, dI],
+    b, c [B, L, N], A [dI, N] from h0 [B, dI, N] (zeros) → (y [B, L, dI],
+    h_final [B, dI, N]), float32."""
+    record_launch("selective_scan")
+    return _sel.selective_scan(dt, x, b, c, A, h0)

@@ -26,7 +26,7 @@ __all__ = ["key64", "split64", "popcount_words", "bitset_binary_ref",
            "segment_agg_ref", "refine_tracks_batched_ref",
            "refine_tracks_multi_ref", "refine_no_hits", "FH_NONE",
            "LH_NONE", "flash_attention_ref", "FLASH_REL", "flash_tolerance",
-           "ssm_scan_ref"]
+           "ssm_scan_ref", "selective_scan_ref"]
 
 _LO32 = 0xFFFFFFFF
 _TOP = -(1 << 63)                       # int64 with only bit 63 set
@@ -333,3 +333,34 @@ def ssm_scan_ref(a, bx, h0=None):
         h = a[:, t] * h + bx[:, t]
         hs[:, t] = h
     return hs, h
+
+
+#: steps a chunk of :func:`selective_scan_ref`: it bounds the chunk's
+#: [B, chunk, dI·N] intermediates; the result does not depend on it
+SELECTIVE_CHUNK = 256
+
+
+def selective_scan_ref(dt, x, b, c, A, h0=None):
+    """A Mamba layer's selective scan as the unfused chain computes it
+    (``repro/ml/mamba.py``'s chunk maths): dt, x [B, L, dI] and b, c
+    [B, L, N] upcast to float32, A [dI, N], optional h0 [B, dI, N] (zeros)
+    → (y [B, L, dI], final state [B, dI, N]).  A chunk at a time:
+    a = exp(dt·A) and bx = (dt·x)·b over [B, c, dI, N], the recurrence
+    through :func:`ssm_scan_ref` from the last chunk's state, y = Σ_n h·c."""
+    bsz, length, di = dt.shape
+    n = A.shape[1]
+    h = torch.zeros((bsz, di * n), dtype=torch.float32, device=dt.device) \
+        if h0 is None else h0.float().reshape(bsz, di * n)
+    ys = [torch.zeros((bsz, 0, di), dtype=torch.float32, device=dt.device)]
+    for c0 in range(0, length, SELECTIVE_CHUNK):
+        cut = slice(c0, c0 + SELECTIVE_CHUNK)
+        dc = dt[:, cut].float()
+        cl = dc.shape[1]
+        a = torch.exp(dc[..., None] * A)                    # [B, c, dI, N]
+        bx = (dc * x[:, cut].float())[..., None] \
+            * b[:, cut].float()[:, :, None]                 # [B, c, dI, N]
+        hs, h = ssm_scan_ref(a.reshape(bsz, cl, di * n),
+                             bx.reshape(bsz, cl, di * n), h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs.view(bsz, cl, di, n),
+                               c[:, cut].float()))
+    return torch.cat(ys, dim=1), h.view(bsz, di, n)

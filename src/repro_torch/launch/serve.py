@@ -5,9 +5,9 @@ The port of ``repro/launch/serve.py``.  Requests queue in, the scheduler
 packs up to ``max_batch`` active sequences, prompts are left-padded with
 token 0 to a common length (no padding mask, as the reference), prefill
 runs over the batch (every attention layer through the flash-attention
-kernel, every Mamba layer through the ssm_scan kernel), and a decode step
-advances every active sequence each tick.  Finished sequences free their
-slot for queued requests — continuous batching.
+kernel, every Mamba layer through the selective_scan kernel), and a
+decode step advances every active sequence each tick.  Finished
+sequences free their slot for queued requests — continuous batching.
 
 This is also the §5 "large-scale model application" driver: WFL
 pipelines can hand a column of prompts to ``Server.generate_batch``.

@@ -1,26 +1,29 @@
 """Mamba (selective SSM) block — Jamba's recurrent layer.
 
-The port of ``repro/ml/mamba.py``.  Training/prefill run a *chunked*
-selective scan, the chunks threaded sequentially through a [B, dI, N]
-carry; live memory is O(B·chunk·dI·N), as in the reference.  Two paths
-solve each chunk's diagonal recurrence h_t = a_t ⊙ h_{t-1} + bx_t:
+The port of ``repro/ml/mamba.py``.  The selective scan solves the
+diagonal recurrence h_t = a_t ⊙ h_{t-1} + bx_t, a_t = exp(dt_t·A),
+bx_t = (dt_t·x_t)·B_t, and reads out y_t = Σ_n h_t·C_t, on one of two
+paths:
 
-  * ``impl="kernel"`` (prefill and serving): flattened to [B, c, dI·N],
-    it goes to ``kernels.ops.ssm_scan`` (the hand-written CUDA kernel for
-    CUDA tensors) with the carry from the last chunk as its starting
-    state.  The reference calls its Pallas ``ssm_scan`` "the TPU-target
-    fast path for the flattened inner scan"; here the kernel is that path.
-    It has no backward.
-  * ``impl="reference"`` (training): the reference's own path, an
-    associative scan in the same pairing order as ``jax.lax.
-    associative_scan`` over chunks padded to ``chunk`` (a = 1, bx = 0),
-    each chunk under ``torch.utils.checkpoint`` as at the reference's
-    ``jax.checkpoint``; it is differentiable.
+  * ``impl="kernel"`` (prefill and serving): one
+    ``kernels.ops.selective_scan`` over the whole sequence from a zero
+    carry — on CUDA tensors one hand-written kernel a layer that keeps
+    the [B, L, dI·N] a, bx and h in registers, in place of the
+    reference's chunk loop of jnp passes around the inner scan (its
+    Pallas ``ssm_scan`` on the TPU): the same float32 maths, and
+    ``chunk`` does not change this path.  It has no backward.
+  * ``impl="reference"`` (training): the reference's own *chunked* path,
+    the chunks threaded sequentially through a [B, dI, N] carry (live
+    memory O(B·chunk·dI·N), as in the reference), each an associative
+    scan in the same pairing order as ``jax.lax.associative_scan`` over
+    chunks padded to ``chunk`` (a = 1, bx = 0), under
+    ``torch.utils.checkpoint`` as at the reference's ``jax.checkpoint``;
+    it is differentiable.
 
-On a mesh both paths run their whole chunk loop on each rank's own dI
-channels through ``local_map`` (the batch over the batch axes, dI over
-``model``, as the reference pins the carry; one launch a chunk on every
-rank on the kernel path; no collective).
+On a mesh both paths run on each rank's own dI channels through
+``local_map`` (the batch over the batch axes, dI over ``model``, as the
+reference pins the carry; one launch a layer on every rank on the kernel
+path; no collective).
 
 Decode keeps O(1) state: {h: [B, dI, N], conv: [B, K-1, dI]}, one step in
 plain PyTorch.
@@ -162,31 +165,18 @@ def _reference_scan(dh, x1h, bh, ch, A, *, chunk: int):
     return torch.cat(ys, dim=1)[:, :s], h
 
 
-def _kernel_scan(dh, x1h, bh, ch, A, *, chunk: int):
-    """The kernel path's chunk loop over plain tensors: dh, x1h [B, S,
-    dI], bh, ch [B, S, N], A [dI, N] → (y [B, S, dI], final state [B, dI,
-    N]), one ``kops.ssm_scan`` a chunk from a zero carry."""
-    b, s, di = dh.shape
-    n = A.shape[1]
-    h = torch.zeros((b, di * n), dtype=torch.float32, device=dh.device)
-    ys = []
-    for c0 in range(0, s, chunk):
-        dc = dh[:, c0:c0 + chunk].float()
-        xc = x1h[:, c0:c0 + chunk].float()
-        bc = bh[:, c0:c0 + chunk].float()
-        cl = dc.shape[1]
-        a = torch.exp(dc[..., None] * A)                   # [B, c, dI, N]
-        bx = (dc * xc)[..., None] * bc[:, :, None, :]      # [B, c, dI, N]
-        hs, h = kops.ssm_scan(a.reshape(b, cl, di * n),
-                              bx.reshape(b, cl, di * n), h)
-        ys.append(torch.einsum("bcdn,bcn->bcd", hs.view(b, cl, di, n),
-                               ch[:, c0:c0 + chunk].float()))
-    return torch.cat(ys, dim=1), h.view(b, di, n)
+def _kernel_scan(dh, x1h, bh, ch, A):
+    """The kernel path over plain tensors: dh, x1h [B, S, dI], bh, ch [B,
+    S, N], A [dI, N] → (y [B, S, dI], final state [B, dI, N]), one
+    ``kops.selective_scan`` over the whole sequence from a zero carry."""
+    return kops.selective_scan(dh.contiguous(), x1h.contiguous(),
+                               bh.contiguous(), ch.contiguous(),
+                               A.contiguous())
 
 
-def _scan_on_ranks(scan, dh, x1h, bh, ch, A, chunk: int):
-    """``scan`` (:func:`_kernel_scan` or :func:`_reference_scan`) on
-    DTensors: each rank runs the whole chunk loop on its own channels
+def _scan_on_ranks(scan, dh, x1h, bh, ch, A):
+    """``scan`` (:func:`_kernel_scan` or :func:`_reference_scan` with its
+    chunk bound) on DTensors: each rank runs it on its own channels
     (``on_pieces``) — dh, x1h, A and the outputs cut over dI on
     ``model`` (replicated where dI does not divide it), bh and ch whole
     over dI, the batch over the batch axes where it divides.  The
@@ -206,7 +196,7 @@ def _scan_on_ranks(scan, dh, x1h, bh, ch, A, chunk: int):
     g_rows = [Partial() if c.is_shard() and not r.is_shard() else r
               for r, c in zip(at_rows, at_chan)]
     g_a = [Partial() if r.is_shard() else a for a, r in zip(at_a, at_rows)]
-    return on_pieces(partial(scan, chunk=chunk), mesh,
+    return on_pieces(scan, mesh,
                      (at_chan, at_chan, at_rows, at_rows, at_a),
                      (at_chan, at_h),
                      (at_chan, at_chan, g_rows, g_rows, g_a))(
@@ -218,10 +208,11 @@ def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False,
     """x [B, S, D] → [B, S, D] (training / prefill).
 
     ``return_state`` additionally returns the decode cache
-    {h: [B, dI, N], conv: [B, K-1, dI]} after the last position.  On the
-    kernel path the last chunk is simply shorter where ``chunk`` does not
-    divide S; the reference path pads it with a = 1, bx = 0, which leaves
-    the carry as is, as the reference does.
+    {h: [B, dI, N], conv: [B, K-1, dI]} after the last position.
+    ``chunk`` sets the reference path's chunks; where it does not divide S
+    that path pads the last one with a = 1, bx = 0, which leaves the
+    carry as is, as the reference does.  The kernel path scans the whole
+    sequence in one call.
     """
     if impl not in ("kernel", "reference"):
         raise ValueError(f"impl {impl!r}: expected 'kernel' or 'reference'")
@@ -238,12 +229,12 @@ def mamba_apply(x, p, *, chunk: int = 256, return_state: bool = False,
     dh = delta.to(STAGE_DTYPE)
     bh = b_ssm.to(STAGE_DTYPE)
     ch = c_ssm.to(STAGE_DTYPE)
-    c = min(chunk, s)
-    scan = _reference_scan if impl == "reference" else _kernel_scan
+    scan = partial(_reference_scan, chunk=min(chunk, s)) \
+        if impl == "reference" else _kernel_scan
     if is_dtensor(dh):
-        y, h = _scan_on_ranks(scan, dh, x1h, bh, ch, A, c)
+        y, h = _scan_on_ranks(scan, dh, x1h, bh, ch, A)
     else:
-        y, h = scan(dh, x1h, bh, ch, A, chunk=c)
+        y, h = scan(dh, x1h, bh, ch, A)
     y = y + p["D_skip"] * x1
     y = y.to(x.dtype) * silu(z)
     out = y @ p["out_proj"].to(y.dtype)

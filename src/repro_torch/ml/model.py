@@ -350,7 +350,8 @@ class ModelBundle:
         no-backward error when the model reaches a kernel."""
         kinds = set(self.cfg.block_pattern)
         names = [k for k, kind in (("flash_attention", "attn"),
-                                   ("ssm_scan", "mamba")) if kind in kinds]
+                                   ("selective_scan", "mamba"))
+                 if kind in kinds]
         if self.mesh is not None and self.lm.impl == "kernel" and names:
             raise _build.no_backward(" and ".join(names))
 

@@ -26,12 +26,13 @@ end is a stub in the reference too: ``frames`` are embeddings.
 
 ``impl`` picks the full-sequence paths, as the reference's ``LM(impl=)``
 does: ``"kernel"`` (the default, what ``launch.serve`` runs) sends
-attention to ``kops.flash_attention`` and the Mamba chunks to
-``kops.ssm_scan`` — the CUDA kernels on the card, which have no backward
-and raise under grad there; ``"reference"`` runs the plain, differentiable
-``attention.chunked_attention`` and the associative Mamba scan, the path
-``ml.model.ModelBundle`` trains through.  The kernel wrappers still pick
-kernel or plain version by the device of their inputs.
+attention to ``kops.flash_attention`` and each Mamba layer's scan to
+``kops.selective_scan`` — the CUDA kernels on the card, which have no
+backward and raise under grad there; ``"reference"`` runs the plain,
+differentiable ``attention.chunked_attention`` and the associative Mamba
+scan, the path ``ml.model.ModelBundle`` trains through.  The kernel
+wrappers still pick kernel or plain version by the device of their
+inputs.
 
 ``remat`` ("none" | "dots" | "full") wraps each block in
 ``torch.utils.checkpoint``: "full" saves only the block's input and

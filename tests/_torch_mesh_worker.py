@@ -359,12 +359,13 @@ def _kernel_batch(cfg):
 
 
 def _counting_wrappers():
-    """Replace ``kernels.ops.flash_attention`` / ``ssm_scan`` (what the LM
-    calls) by wrappers that count their calls and the calls handed a
-    DTensor; → (counts, restore)."""
+    """Replace ``kernels.ops.flash_attention`` / ``selective_scan`` (what
+    the LM calls) by wrappers that count their calls and the calls handed
+    a DTensor; → (counts, restore)."""
     from repro_torch.kernels import ops as kops
-    counts = {"flash_attention": 0, "ssm_scan": 0, "dtensor_args": 0}
-    orig = {k: getattr(kops, k) for k in ("flash_attention", "ssm_scan")}
+    counts = {"flash_attention": 0, "selective_scan": 0, "dtensor_args": 0}
+    orig = {k: getattr(kops, k)
+            for k in ("flash_attention", "selective_scan")}
 
     def wrap(name):
         def call(*args, **kw):
@@ -430,13 +431,13 @@ def _serve_case(cfg, shape, batch):
         "same_tokens": bool(torch.equal(_full(t1), t1_one)),
         "cache_max_abs": cache_err,
         "calls_every_rank": dist_all(
-            {k: counts[k] for k in ("flash_attention", "ssm_scan")}),
+            {k: counts[k] for k in ("flash_attention", "selective_scan")}),
         "dtensor_args_every_rank": dist_all(counts["dtensor_args"]),
         "launches_every_rank": dist_all(launches),
         "want_calls": {
             "flash_attention": kinds.count("attn")
             * (1 + bool(cfg.encoder_layers)) + cfg.encoder_layers,
-            "ssm_scan": kinds.count("mamba") * -(-s // 256)},
+            "selective_scan": kinds.count("mamba")},
         "train_step_refused": refused}
 
 

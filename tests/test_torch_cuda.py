@@ -6,7 +6,7 @@ and the fused wave and the coalescing query server run end to end on the
 card against the port's numpy oracle — and, with two cards or more, with
 each partition's waves on its own card (these tests skip below two
 cards); the LM's prefill (through the
-flash-attention and ssm_scan kernels) is held to its plain decode path.  Without a GPU every test here skips.  This file imports nothing
+flash-attention and selective-scan kernels) is held to its plain decode path.  Without a GPU every test here skips.  This file imports nothing
 of ``jax`` or ``repro``, so a GPU machine without jax runs it with
 
     python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -33,6 +33,7 @@ from repro_torch.configs import get_config            # noqa: E402
 from repro_torch.kernels import (_build, bitset, compact, ops,  # noqa: E402
                                  ref, refine, segment_agg)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import selective_scan as sel  # noqa: E402
 from repro_torch.kernels import ssm_scan as ssm       # noqa: E402
 from repro_torch.launch.serve import Request, Server  # noqa: E402
 from repro_torch.ml.transformer import LM             # noqa: E402
@@ -385,7 +386,8 @@ def test_refine_kernel_edge_cases(card, case):
     assert hits > 0
 
 
-@pytest.mark.parametrize("kernel", ["flash_attention", "ssm_scan"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssm_scan",
+                                    "selective_scan"])
 def test_kernels_raise_under_grad(card, kernel):
     """The CUDA kernels have no backward: under grad mode an input that
     requires grad raises instead of silently cutting the gradient; without
@@ -395,11 +397,18 @@ def test_kernels_raise_under_grad(card, kernel):
 
         def call(a):
             return fa.flash_attention(a, x, x)
-    else:
+    elif kernel == "ssm_scan":
         x = torch.rand((1, 16, 32), device=card)
 
         def call(a):
             return ssm.ssm_scan(a, x)[0]
+    else:
+        x = torch.rand((1, 16, 32), device=card)
+        bc = torch.rand((1, 16, 4), device=card)
+        A = -torch.rand((32, 4), device=card)
+
+        def call(a):
+            return sel.selective_scan(a, x, bc, bc, A)[0]
     leaf = x.clone().requires_grad_(True)
     before = _build.kernel_launches().get(kernel, 0)
     with pytest.raises(RuntimeError, match="no backward"):
@@ -427,6 +436,8 @@ def _wrapper_calls(card):
     cov_multi = _words(pack_constraints_multi([cons[:1], cons]), card)
     q = torch.randn((1, 4, 64, 64), device=card).to(torch.bfloat16)
     a = torch.rand((1, 16, 32), device=card)
+    bc = torch.rand((1, 16, 4), device=card)
+    A = -torch.rand((32, 4), device=card)
     return {
         "bitmap_intersect_batched": lambda: bitset.bitmap_intersect_batched(
             words),
@@ -447,6 +458,7 @@ def _wrapper_calls(card):
                                                       40),
         "flash_attention": lambda: fa.flash_attention(q, q, q),
         "ssm_scan": lambda: ssm.ssm_scan(a, a),
+        "selective_scan": lambda: sel.selective_scan(a, a, bc, bc, A),
     }
 
 
@@ -885,6 +897,58 @@ def test_ssm_scan_kernel_matches_plain(card, b, l, d, with_h0):
     torch.testing.assert_close(hT, hTr, rtol=3e-4, atol=3e-4)
 
 
+def _selective_inputs(card, b, l, d, n, dtype, seed):
+    """dt (softplus-sized), x, B, C as the Mamba layer stages them and
+    A = -exp(A_log) about its initial value."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=card)
+    dt = torch.nn.functional.softplus(randn(b, l, d) - 1.0)
+    A = -torch.exp(torch.log(torch.arange(1, n + 1, device=card).float())
+                   + 0.1 * randn(d, n))
+    return (dt.to(dtype), randn(b, l, d).to(dtype), randn(b, l, n).to(dtype),
+            randn(b, l, n).to(dtype), A)
+
+
+@pytest.mark.parametrize("b,l,d,n,dtype,with_h0", [
+    (2, 512, 8192, 16, torch.bfloat16, False),
+    (2, 512, 8192, 16, torch.bfloat16, True),
+    (16, 300, 2048, 16, torch.bfloat16, True),   # split across 4 lanes
+    (3, 77, 130, 4, torch.bfloat16, True),       # ragged block, N 4
+    (1, 1, 8, 4, torch.float32, True),
+    (2, 70, 300, 16, torch.float32, False)])
+def test_selective_scan_kernel_matches_plain(card, b, l, d, n, dtype,
+                                             with_h0):
+    """The fused kernel against its plain version (the unfused chain) on
+    the same card inputs: y within 1e-5 of max |y|, h_final within 1e-5
+    of max |h_final|; one launch a call."""
+    dt, x, bm, cm, A = _selective_inputs(card, b, l, d, n, dtype, l + d)
+    h0 = torch.randn((b, d, n), device=card) if with_h0 else None
+    before = _build.kernel_launches().get("selective_scan", 0)
+    y, hT = sel.selective_scan(dt, x, bm, cm, A, h0)
+    torch.cuda.synchronize()
+    assert _build.kernel_launches()["selective_scan"] == before + 1
+    wy, whT = ref.selective_scan_ref(dt, x, bm, cm, A, h0)
+    assert float((y - wy).abs().max()) <= 1e-5 * float(wy.abs().max())
+    assert float((hT - whT).abs().max()) <= 1e-5 * float(whT.abs().max())
+
+
+def test_selective_scan_kernel_rejects(card):
+    dt, x, bm, cm, A = _selective_inputs(card, 1, 4, 8, 2, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="N in"):
+        sel.selective_scan(dt, x, bm, cm, A)                # N = 2
+    dt, x, bm, cm, A = _selective_inputs(card, 1, 4, 8, 4, torch.bfloat16, 0)
+    with pytest.raises(ValueError):
+        sel.selective_scan(dt, x.float(), bm, cm, A)        # mixed dtypes
+    with pytest.raises(ValueError, match="contiguous"):
+        sel.selective_scan(dt.transpose(1, 2).contiguous().transpose(1, 2),
+                           x, bm, cm, A)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(1 + 4 * 4, dtype=torch.bfloat16, device=card)
+        sel.selective_scan(dt, x, flat[1:].view(1, 4, 4), cm, A)
+
+
 def _lm_consistency(arch, dev, s=300):
     """Float32, dropless MoE: decode logits at position s-1 after a
     prefill of s-1 tokens against the prefill's logits over s tokens."""
@@ -911,8 +975,9 @@ def test_lm_prefill_decode_consistency_on_card(fp32_card):
         lc = _lm_consistency("smollm_360m", fp32_card)
         assert lc == {"flash_attention": 2 * 2}
         lc = _lm_consistency("jamba_v0_1_52b", fp32_card)
-        # 14 Mamba layers, 2 chunks of 256 for 300 and for 299 tokens
-        assert lc == {"flash_attention": 2 * 2, "ssm_scan": 2 * 14 * 2}
+        # 14 Mamba layers, one selective_scan a layer for 300 and for 299
+        # tokens
+        assert lc == {"flash_attention": 2 * 2, "selective_scan": 2 * 14}
 
 
 def test_server_on_card(card):
@@ -926,7 +991,7 @@ def test_server_on_card(card):
     srv.serve(reqs)
     assert all(r.done and len(r.out) == 5 for r in reqs)
     assert _build.kernel_launches() == {"flash_attention": 2 * 2,
-                                        "ssm_scan": 2 * 14}
+                                        "selective_scan": 2 * 14}
 
 
 # ------------------------------------- segment_hll, merge_partials, engines
@@ -1261,9 +1326,10 @@ def test_snap_path_on_card_equals_cpu(card):
 
 
 def test_lm_kernel_impl_raises_under_grad_on_card(card):
-    """``LM(impl="kernel")`` reaches the CUDA flash_attention / ssm_scan,
-    which have no backward: a forward whose params require grad raises;
-    ``impl="reference"`` differentiates on the card and launches nothing."""
+    """``LM(impl="kernel")`` reaches the CUDA flash_attention /
+    selective_scan, which have no backward: a forward whose params require
+    grad raises; ``impl="reference"`` differentiates on the card and
+    launches nothing."""
     cfg = get_config("jamba_v0_1_52b").reduced()
     live = LM(cfg).init(0, "cuda", dtype=torch.float32)
     for _, (leaf, _) in _pairs(live, live):
@@ -1585,6 +1651,10 @@ def test_wrappers_refuse_tensors_of_two_cards(cards):
     with pytest.raises(ValueError, match="different devices"):
         ssm.ssm_scan(torch.ones(1, 4, 8, device=a),
                      torch.ones(1, 4, 8, device=b))
+    with pytest.raises(ValueError, match="different devices"):
+        sel.selective_scan(*(torch.ones(1, 4, 8, device=a),) * 2,
+                           *(torch.ones(1, 4, 4, device=b),) * 2,
+                           torch.ones(8, 4, device=a))
     pts, rows, cov, _ = _refine_inputs(np.random.default_rng(1), [40], a)
     with pytest.raises(ValueError):
         refine.refine_tracks_batched(pts, rows, cov.to(b), 40)
@@ -1705,7 +1775,7 @@ def test_mesh_elastic_restore_across_cards(mesh_ranks):
 def test_mesh_kernel_serving_on_the_cards(mesh_ranks):
     """Prefill and decode through the kernels on each rank's pieces
     against the rank's card alone; every card launches flash_attention
-    once an attention layer and ssm_scan once a Mamba layer and chunk
+    once an attention layer and selective_scan once a Mamba layer
     (``_build.kernel_launches(device=)``), and no wrapper gets a
     DTensor."""
     world, res = mesh_ranks

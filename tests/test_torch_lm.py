@@ -285,6 +285,103 @@ def test_ssm_scan_chunks_carry_through_h0():
     torch.testing.assert_close(c2, hT, rtol=0, atol=0)
 
 
+# ------------------------------------------------------ selective scan
+
+def _chain(dt, x, b, c, A, h0, chunk):
+    """The Mamba layer's unfused chain in chunks of ``chunk``: exp(dt·A),
+    (dt·x)·B, ``ssm_scan_ref`` from the carry, y = Σ_n h·C."""
+    bsz, s, di = dt.shape
+    n = A.shape[1]
+    h, ys = h0.reshape(bsz, di * n), []
+    for c0 in range(0, s, chunk):
+        dc, xc = dt[:, c0:c0 + chunk].float(), x[:, c0:c0 + chunk].float()
+        bc, cc = b[:, c0:c0 + chunk].float(), c[:, c0:c0 + chunk].float()
+        cl = dc.shape[1]
+        a = torch.exp(dc[..., None] * A)
+        bx = (dc * xc)[..., None] * bc[:, :, None, :]
+        hs, h = tref.ssm_scan_ref(a.reshape(bsz, cl, di * n),
+                                  bx.reshape(bsz, cl, di * n), h)
+        ys.append(torch.einsum("bcdn,bcn->bcd", hs.view(bsz, cl, di, n),
+                               cc))
+    return torch.cat(ys, dim=1), h.view(bsz, di, n)
+
+
+def _scan_inputs(seed, b, s, di, n):
+    """bf16-staged dt (softplus-sized), x, B, C and A = -exp(A_log) as
+    the Mamba layer hands them over."""
+    rng = np.random.default_rng(seed)
+    dt = _t(np.log1p(np.exp(rng.normal(-1.0, 1.0, (b, s, di)))),
+            torch.bfloat16)
+    x, bm, cm = (_t(rng.normal(size=shape), torch.bfloat16)
+                 for shape in ((b, s, di), (b, s, n), (b, s, n)))
+    A = -torch.exp(_t(np.log(np.arange(1, n + 1)) + rng.normal(
+        0, 0.1, (di, n))))
+    return dt, x, bm, cm, A
+
+
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("s", [1, 37, 300])
+def test_selective_scan_plain_vs_chunked_chain(s, n):
+    """The plain selective scan equals the unfused chain, in one pass and
+    in chunks of 16 (neither the tile nor 256 divides 37 or 300), from a
+    nonzero h0 and from zeros: y and h_final."""
+    dt, x, bm, cm, A = _scan_inputs(s + n, 2, s, 24, n)
+    h0 = _t(np.random.default_rng(n).normal(size=(2, 24, n)))
+    for start in (h0, torch.zeros_like(h0)):
+        y, hT = ops.selective_scan(dt, x, bm, cm, A,
+                                   start if start.any() else None)
+        for chunk in (s, 16):
+            wy, whT = _chain(dt, x, bm, cm, A, start, chunk)
+            torch.testing.assert_close(y, wy, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(hT, whT, rtol=1e-6, atol=1e-6)
+    assert y.dtype == hT.dtype == torch.float32
+    assert y.shape == (2, s, 24) and hT.shape == (2, 24, n)
+
+
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("s", [1, 37, 300])
+def test_selective_scan_layer_vs_jax_mamba_apply(s, n):
+    """Through the Mamba layer, whose kernel path is one selective_scan:
+    the output and the final state against the JAX package's
+    ``mamba_apply`` (chunks of 256, the last one padded)."""
+    jp, tp = _mamba(state=n)
+    x = np.random.default_rng(s).normal(size=(2, s, 32))
+    want, jst = JMb.mamba_apply(_j(x), jp, chunk=256, return_state=True)
+    ops.reset_launch_counts()
+    got, tst = TMb.mamba_apply(_t(x), tp, chunk=256, return_state=True)
+    assert ops.launch_counts() == {"selective_scan": 1}
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(_np(tst["h"]), _np(jst["h"]), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_selective_scan_checks_its_arguments():
+    dt, x, bm, cm, A = _scan_inputs(0, 2, 5, 8, 4)
+    with pytest.raises(ValueError, match="dt and x"):
+        ops.selective_scan(dt, x[:, :4], bm, cm, A)
+    with pytest.raises(ValueError, match="A"):
+        ops.selective_scan(dt, x, bm, cm, A[:7])
+    with pytest.raises(ValueError, match="c"):
+        ops.selective_scan(dt, x, bm, cm[:, :, :3], A)
+    with pytest.raises(ValueError, match="h0"):
+        ops.selective_scan(dt, x, bm, cm, A, torch.zeros(2, 8, 3))
+    y, hT = ops.selective_scan(dt[:, :0], x[:, :0], bm[:, :0], cm[:, :0], A)
+    assert y.shape == (2, 0, 8) and not hT.any()
+
+
+@pytest.mark.parametrize("channels,n,sms,lanes", [
+    (16 * 8192, 16, 132, 1),     # Jamba's column prefill: one lane
+    (16 * 2048, 16, 132, 4),     # a 1 x 4 mesh rank's dI / 4
+    (4 * 8192, 16, 132, 4),      # a prefill of 4 rows
+    (8 * 8192, 16, 132, 2),
+    (2 * 64, 4, 132, 4),
+    (2 * 64, 2, 132, 2),         # never more lanes than states
+    (132 * 512, 16, 132, 1)])
+def test_selective_scan_lanes_follow_the_shape(channels, n, sms, lanes):
+    from repro_torch.kernels import selective_scan as sel
+    assert sel.lanes_for(channels, n, sms) == lanes
+
+
 # --------------------------------------------------------------- layers
 
 def test_configs_match_the_reference():
@@ -391,10 +488,17 @@ def test_mamba_apply_and_state(s, chunk):
 
 
 def test_mamba_apply_launches_one_scan_a_chunk():
+    """The kernel path scans the whole sequence in one selective_scan a
+    layer whatever the chunk (row 10, ``ssm_scan``, is not called); the
+    reference path launches nothing."""
     jp, tp = _mamba()
+    for chunk in (8, 256):
+        ops.reset_launch_counts()
+        TMb.mamba_apply(_t(np.ones((1, 37, 32))), tp, chunk=chunk)
+        assert ops.launch_counts() == {"selective_scan": 1}
     ops.reset_launch_counts()
-    TMb.mamba_apply(_t(np.ones((1, 37, 32))), tp, chunk=8)
-    assert ops.launch_counts() == {"ssm_scan": 5}
+    TMb.mamba_apply(_t(np.ones((1, 37, 32))), tp, chunk=8, impl="reference")
+    assert ops.launch_counts() == {}
 
 
 def test_mamba_decode_with_state():
@@ -639,9 +743,9 @@ def test_server_launches_flash_per_attention_layer():
     reqs = srv.serve(_requests(tserve.Request, srv.cfg.vocab_size, n=5))
     assert all(len(r.out) == 6 for r in reqs)
     # two prefills (4 + 1 prompts); 16 layers: 2 attention, 14 Mamba with
-    # one 256-chunk each (prompts < 24 tokens)
+    # one selective_scan each
     assert ops.launch_counts() == {"flash_attention": 2 * 2,
-                                   "ssm_scan": 2 * 14}
+                                   "selective_scan": 2 * 14}
 
 
 def test_server_without_device_needs_a_gpu(monkeypatch):

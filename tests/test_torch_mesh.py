@@ -290,8 +290,8 @@ def test_kernel_serving_matches_one_device(ranks, key):
 @pytest.mark.parametrize("key", KERNEL_CASES)
 def test_kernel_serving_calls_the_wrappers_on_every_rank(ranks, key):
     """Every rank calls flash_attention once an attention layer (Whisper:
-    encoder, decoder and cross) and ssm_scan once a Mamba layer and
-    chunk during the mesh prefill, on plain tensors only; the mesh train
+    encoder, decoder and cross) and selective_scan once a Mamba layer
+    during the mesh prefill, on plain tensors only; the mesh train
     step raises the kernels' no-backward error."""
     row = ranks["kernel_serving"][key]
     assert row["want_calls"]["flash_attention"] > 0

@@ -221,9 +221,9 @@ def test_encode_matches_reference():
 @pytest.mark.parametrize("arch", ["jamba_v0_1_52b", "xlstm_1_3b"])
 def test_ssm_chunk_reaches_every_chunked_block(arch, monkeypatch):
     """``ArchConfig.ssm_chunk`` (the reference's ``REPRO_SSM_CHUNK``)
-    reaches the Mamba and mLSTM chunk loops of the LM: a 150-token prefill
-    in chunks of 64 (three, the last partial; Jamba's kernel path one
-    ssm_scan a chunk, xLSTM's one mLSTM chunk each) gives the logits of
+    reaches the mLSTM chunk loops of the LM and leaves Jamba's kernel path
+    one selective_scan a Mamba layer: a 150-token prefill in chunks of 64
+    (three, the last partial; xLSTM one mLSTM chunk each) gives the logits of
     the default 256 (one chunk), and the reference's under
     ``REPRO_SSM_CHUNK=64`` with the same parameters, within LOGIT_REL
     (float32 activations)."""
@@ -249,8 +249,9 @@ def test_ssm_chunk_reaches_every_chunked_block(arch, monkeypatch):
             got[chunk], _ = LM(replace(lm.cfg, ssm_chunk=chunk)).prefill(
                 tp, tok)
         n = -(-150 // chunk)
-        assert ops.launch_counts().get("ssm_scan", 0) == \
-            kinds.count("mamba") * n
+        assert ops.launch_counts().get("selective_scan", 0) == \
+            kinds.count("mamba")
+        assert "ssm_scan" not in ops.launch_counts()
         assert len(chunks) == kinds.count("mlstm") * n
     monkeypatch.setenv("REPRO_SSM_CHUNK", "64")
     want, _ = jlm.prefill(jp, jnp.asarray(tokens))

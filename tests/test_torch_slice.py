@@ -303,6 +303,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.launch.serve", "repro_torch.ml.mamba",
             "repro_torch.ml.moe", "repro_torch.configs.jamba_v0_1_52b",
             "repro_torch.kernels.flash_attention",
-            "repro_torch.kernels.ssm_scan", "repro_torch.ml.sharding",
+            "repro_torch.kernels.ssm_scan",
+            "repro_torch.kernels.selective_scan", "repro_torch.ml.sharding",
             "repro_torch.launch.train", "repro_torch.launch.elastic"} \
         <= set(mods)

@@ -19,7 +19,9 @@ of them in ``--out``):
   the host was in a decode step, split by the block half it was in
   (``attn``, ``mamba``, ``moe``, ``mlp``, the rest of the step); the
   prefill's device time outside the block halves (embedding, head, cache
-  build); and any device record of the spans' CUDA events;
+  build); any device record of the spans' CUDA events; the window's
+  kernel launches against the server's prefills, and the Mamba scan
+  kernels' device records (``selective_scan_kernel``, ``ssm_scan_kernel``);
 * ``cost``: ``LM.prefill`` at the cell's largest call and ``LM.decode_step``
   on its caches, with tracing off and after ``tracing.on()``, in turns,
   without the profiler: host clock around a synchronised call, medians
@@ -72,10 +74,15 @@ def trace_part(torch, c, seed, seconds, dev):
                                             records)
     from bench_h100.harness.trace import gaps, union_ns
     from repro_torch import tracing
+    from repro_torch.kernels import _build, ops
 
     driver = runner.KINDS[c.traffic["kind"]](c, seed, dev, True)
     driver.setup()
     tracing.clear()
+    prefills = driver.srv.stats["prefills"]
+    ops.reset_launch_counts()
+    if dev.type == "cuda":
+        _build.reset_kernel_launches()
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
@@ -148,6 +155,15 @@ def trace_part(torch, c, seed, seconds, dev):
     out["decode_steps"] = len(dec)
     out["event_records"] = sum("event" in n.lower() for n, *_ in tr.device)
     out["device_records"] = len(tr.device)
+
+    # the window's launches a prefill, and the Mamba scan kernels' records
+    out["server_prefills"] = driver.srv.stats["prefills"] - prefills
+    out["launches"] = ops.launch_counts()
+    if dev.type == "cuda":
+        out["kernel_launches"] = _build.kernel_launches()
+    for k in ("selective_scan_kernel", "ssm_scan_kernel"):
+        ns = [b - a for n, a, b, _ in tr.device if k in n]
+        out[k] = {"records": len(ns), "device_s": sum(ns) / 1e9}
     return driver, out
 
 
