@@ -13,7 +13,9 @@ step sees the first half of its batch, the mean taken over those rows.
 Each seed is a whole run (set-up, a short window at the cell's load, the
 check); one JSON line a seed, the port's own numbers of a served cell
 under ``readings`` as ``program_<number>``.  A training cell run with
-neither option is a sound run.  The benchmark's runs never run this.
+neither option is a sound run.  A cell on several cards runs every seed
+in one start of its ranks (``harness.ranks``).  The benchmark's runs
+never run this.
 """
 import argparse
 import json
@@ -32,21 +34,13 @@ def main() -> None:
     ap.add_argument("--train-fault", choices=("half",), default=None)
     args = ap.parse_args()
     prepare()
-    import torch
-    from bench_h100.harness import runner, spec
+    from bench_h100.harness import spec
     if args.train_fault:
         _half_batch()
     passed = []
-    for seed in (int(s) for s in args.seeds.split(",")):
-        cell = spec.cell(args.workload)
-        if args.train_param_dtype:
-            cell.traffic = dict(cell.traffic, train=dict(
-                cell.traffic["train"], param_dtype=args.train_param_dtype))
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = runner.run_cell(args.workload, seed, args.seconds, False,
-                              device="cuda", control=True, cell=cell)
-        print(json.dumps({"seed": seed, "seconds": time.perf_counter() - t0,
+    seeds = [int(s) for s in args.seeds.split(",")]
+    for seed, seconds, out in _runs(args, seeds):
+        print(json.dumps({"seed": seed, "seconds": seconds,
                           "correct": out["correct"],
                           "metrics": out["metrics"],
                           "memory_peak_bytes":
@@ -60,6 +54,39 @@ def main() -> None:
     if controlled and passed:
         print(f"control: seeds {passed} came out correct", file=sys.stderr)
         sys.exit(1)
+
+
+def _runs(args, seeds):
+    """(seed, seconds, result) of each seed's run with the control."""
+    import torch
+    from bench_h100.harness import runner, spec
+    cell = spec.cell(args.workload)
+    if cell.chips > 1:
+        from bench_h100.harness import ranks
+        from repro_torch.kernels import _build
+        _build.build_all()
+        jobs = [{"name": args.workload, "seed": seed,
+                 "seconds": args.seconds, "traced": False, "control": True,
+                 "cell": cell} for seed in seeds]
+        t0 = time.perf_counter()
+        outs = ranks.launch(runner.run_ranks, (jobs, "nccl"), cell.chips,
+                            backend="nccl",
+                            deadline=t0 + 330 * len(seeds))
+        each = (time.perf_counter() - t0) / len(seeds)
+        for seed, out in zip(seeds, outs):
+            out.pop("forbidden")
+            yield seed, each, out
+        return
+    for seed in seeds:
+        cell = spec.cell(args.workload)
+        if args.train_param_dtype:
+            cell.traffic = dict(cell.traffic, train=dict(
+                cell.traffic["train"], param_dtype=args.train_param_dtype))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = runner.run_cell(args.workload, seed, args.seconds, False,
+                              device="cuda", control=True, cell=cell)
+        yield seed, time.perf_counter() - t0, out
 
 
 def _half_batch() -> None:

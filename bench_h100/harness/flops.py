@@ -15,6 +15,9 @@ from .model import Dims
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12          # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
+#: exponentials a second on the special-function units: 16 a clock an SM,
+#: 132 SMs at 1.98 GHz
+PEAK_SFU_EXPS = 4.19e12
 
 
 def layer_matmul_params(dims: Dims, i: int) -> int:
@@ -110,12 +113,16 @@ def flash_bound_s(dims: Dims, batch: int, seq: int,
                       PEAK_BF16_FLOPS)
 
 
-def ssm_scan_bound_s(dims: Dims, batch: int, seq: int) -> float:
-    """Row 10 over one Mamba layer's prefill: one float32 scan call a
-    chunk of ``ssm_chunk`` positions over D = d_inner * d_state channels,
-    reading a and bx and writing h ([B, L, D] each), reading the carry in
-    and writing it out ([B, D] each); a multiply-add a position."""
-    ch = dims.di * dims.d_state
-    chunks = -(-seq // dims.ssm_chunk)
-    nbytes = 4 * (3 * batch * seq * ch + 2 * batch * ch * chunks)
-    return roofline_s(2 * batch * seq * ch, nbytes, PEAK_FP32_FLOPS)
+def selective_scan_bound_s(dims: Dims, batch: int, seq: int,
+                           channels: int = None) -> float:
+    """The fused selective scan (``selective_scan_kernel``, one launch a
+    Mamba layer's prefill) over ``channels`` of d_inner (all of them, or
+    one card's share on a mesh): dt and x [B, L, C] and B and C [B, L, N]
+    read in bf16, y [B, L, C] and the final state [B, C, N] written in
+    float32; one exponential a state element a position, at the special-
+    function units' rate.  The bound is the larger of the two times."""
+    c = dims.di if channels is None else channels
+    n = dims.d_state
+    nbytes = 2 * batch * seq * (2 * c + 2 * n) + 4 * batch * seq * c \
+        + 4 * batch * c * n
+    return max(batch * seq * c * n / PEAK_SFU_EXPS, nbytes / PEAK_HBM_BYTES)

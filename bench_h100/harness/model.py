@@ -10,7 +10,7 @@ work formulas and the references read :class:`Dims`, and only
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Tuple
 
 
@@ -112,3 +112,29 @@ def moe_groups(tokens: int, group_size: int, experts: int, top_k: int,
         sg -= 1
     cap = int(max(top_k, capacity_factor * sg * top_k / experts))
     return sg, cap
+
+
+def mesh_shape(config: dict) -> Tuple[int, int]:
+    """(data, model): the ``("data", "model")`` mesh the configuration's
+    ``deployment`` states, (1, 1) for one card."""
+    dep = config.get("deployment")
+    mesh = dep.get("mesh") if isinstance(dep, dict) else None
+    if not mesh:
+        return 1, 1
+    return int(mesh["data"]), int(mesh["model"])
+
+
+def on_card(dims: Dims, model: int) -> Dims:
+    """What one card of a ``model``-way cut computes of each attention
+    layer: its query and KV heads (the port's rules cut heads over the
+    model axis)."""
+    if model == 1:
+        return dims
+    return replace(dims, heads=dims.heads // model,
+                   kv_heads=max(1, dims.kv_heads // model))
+
+
+def rows_on_card(batch: int, data: int) -> int:
+    """A batch's rows on one card: cut over the data axis where it
+    divides, else whole (the port's batch rule)."""
+    return batch // data if batch % data == 0 else batch

@@ -4,7 +4,10 @@ Each call hands the server the next ``max_batch`` requests of a column
 of a WFL pipeline (work dispatched ahead, the column never drains).
 ``Server.serve`` returns no token before its batch ends, so a request's
 reply time is the call's return.  The window runs whole calls: it
-closes at the first call that ends at or after ``seconds``.
+closes at the first call that ends at or after ``seconds``.  On a mesh
+every rank makes the same calls; rank 0 decides after each call whether
+the window has closed and tells the others, so that every rank runs the
+same collectives.
 
 The check (``check``) takes a sample of the window's batches, drawn from
 the seed as the window runs (a reservoir of ``check_batches``), with the
@@ -15,7 +18,8 @@ step with every row's token of the step before.  At every served
 position it judges the port's token by the gap between the reference's
 largest logit and the reference's logit of that token, and the port's
 logits by their distance from the reference's, relative to the
-reference's own size.
+reference's own size.  On a mesh the reference runs as a pipeline of
+stages, one a rank (``reference.stages``), and the last rank judges.
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import port, traffic as T, weights
+from ..reference.lm import follow as follow_whole
 from .model import dims as dims_of
 from .spans import Recorder
 
@@ -33,8 +39,14 @@ from .spans import Recorder
 class ServeRun:
     kind = "serve"
 
-    def __init__(self, cell, seed: int, device: torch.device, traced: bool):
+    def __init__(self, cell, seed: int, device: torch.device, traced: bool,
+                 mesh=None):
         self.cell, self.seed, self.device = cell, seed, device
+        self.mesh = mesh
+        if mesh is None:
+            self.rank, self.world = 0, 1
+        else:
+            self.rank, self.world = dist.get_rank(), dist.get_world_size()
         self.dims = dims_of(cell.config)
         self.traffic = cell.traffic
         self.rec = Recorder(traced, device)
@@ -48,8 +60,12 @@ class ServeRun:
 
     # ------------------------------------------------------------ set-up
     def setup(self) -> None:
-        self.srv = port.server(self.dims, int(self.traffic["max_batch"]),
-                               self.seed, self.device)
+        rows = int(self.traffic["max_batch"])
+        if self.mesh is None:
+            self.srv = port.server(self.dims, rows, self.seed, self.device)
+        else:
+            self.srv = port.mesh_server(self.dims, rows, self.seed,
+                                        self.mesh, self.device)
         self.rec.instrument(self.srv)
         # one call at the largest shapes the mix can draw: the window's
         # calls hold smaller or equal ones
@@ -87,10 +103,18 @@ class ServeRun:
                     "prompt": int(r.prompt.shape[0]),
                     "out": len(r.out), "max_new": r.max_new})
             i += 1
-            if rec.window_over():
+            if self._agree(rec.window_over() if self.rank == 0 else False):
                 break
         rec.end_window()
         self.window_s = t1 - start
+
+    def _agree(self, over: bool) -> bool:
+        """Rank 0's ``over``, on every rank of a mesh."""
+        if self.mesh is None:
+            return over
+        flag = torch.tensor([int(over)], device=self.device)
+        dist.broadcast(flag, 0)
+        return bool(flag.item())
 
     def _sample(self, j: int) -> None:
         """Batch ``j`` into the reservoir with the seed's draw, and the
@@ -124,33 +148,53 @@ class ServeRun:
         and the program's own are kept beside them, prefixed
         ``program_``."""
         from ..reference.lm import Model, exact_float32, widen
+        from ..reference.stages import Pipe, layers_of
         exact_float32()
+        judge = self.rank == self.world - 1
         picks = sorted(set(self.sample) | {self.longest[1]}) \
             if self.longest else []
         batches = [self.rec.batches[j] for j in picks]
         for b in batches:
-            b["logits"] = [lg[:, 0].float().cpu() for lg in b["logits"]]
+            b["logits"] = [lg[:, 0].float().cpu() for lg in b["logits"]] \
+                if judge else None
         self.release()
-        params = widen(weights.make(self.dims, self.seed, self.device,
-                                    "serve"))
+        if self.mesh is None:
+            params = widen(weights.make(self.dims, self.seed, self.device,
+                                        "serve"))
+            held, follow = None, follow_whole
+        else:
+            held = layers_of(self.dims.layers, self.dims.period, self.rank,
+                             self.world)
+            params = widen(weights.stage(
+                self.dims, self.seed, self.device, held,
+                embed=self.rank == 0 or (judge and self.dims.tie),
+                head=judge))
+            follow = Pipe(self.rank, self.world, self.device).follow
         port.free(self.device)
-        ref = Model(self.dims, params)
-        ctl = Model(self.dims, params, precision="fp8") if control else None
+        ref = Model(self.dims, params, layers=held)
+        ctl = Model(self.dims, params, precision="fp8", layers=held) \
+            if control else None
         mine, theirs = [], []
         for b in batches:
-            m, c = replay(ref, ctl, b, self.device)
+            m, c = replay(ref, ctl, b, self.device, follow)
             mine.append(m)
             theirs.append(c)
         del params, ref, ctl
         port.free(self.device)
-        out = {"checked_tokens": sum(m["gap"].numel() for m in mine),
-               "checked_batches": len(batches)}
-        prog = numbers(mine)
-        if control:
-            out.update(numbers(theirs))
-            out.update({f"program_{k}": v for k, v in prog.items()})
-        else:
-            out.update(prog)
+        out = None
+        if judge:
+            out = {"checked_tokens": sum(m["gap"].numel() for m in mine),
+                   "checked_batches": len(batches)}
+            prog = numbers(mine)
+            if control:
+                out.update(numbers(theirs))
+                out.update({f"program_{k}": v for k, v in prog.items()})
+            else:
+                out.update(prog)
+        if self.mesh is not None:
+            box = [out]
+            dist.broadcast_object_list(box, self.world - 1)
+            out = box[0]
         return out
 
 
@@ -170,15 +214,6 @@ def numbers(parts: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
             "logit_err_mean": float(cat["err_mean"].mean())}
 
 
-def _follow(model, toks, served, s: int):
-    """The model's logits [B, V] at every served position: the prefill's
-    last, then each decode step fed every row's served token."""
-    logits, st = model.prefill(toks)
-    yield logits
-    for t in range(1, served.shape[1]):
-        yield model.decode(served[:, t - 1], st, s + t - 1)
-
-
 def _judge(ref, logits, choice, live) -> Dict[str, torch.Tensor]:
     """One position's numbers on its live rows: the gap of ``choice``
     [B] under the reference's logits ``ref`` [B, V], and ``logits``'
@@ -196,12 +231,14 @@ def _joined(parts: List[Dict]) -> Dict[str, torch.Tensor]:
     return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
 
-def replay(ref, ctl, batch: Dict, device):
+def replay(ref, ctl, batch: Dict, device, follow=follow_whole):
     """One served batch through the reference → the program's numbers at
     each served position (its tokens and its logits against the
     reference's); with ``ctl``, then through the control → the same of
     the control's first choices and logits, judged by the reference's
-    logits (kept on the host between the two passes)."""
+    logits (kept on the host between the two passes).  ``follow`` gives
+    the logits at each position (``reference.stages.Pipe.follow`` on a
+    mesh, where ranks other than the last get None and return None)."""
     prompts, outs, new = batch["prompts"], batch["outs"], batch["new"]
     b = len(prompts)
     s = max(p.shape[0] for p in prompts)
@@ -213,15 +250,21 @@ def replay(ref, ctl, batch: Dict, device):
     live = torch.tensor([[t < m for t in range(served.shape[1])]
                          for m in new], device=device)
     mine, kept = [], []
-    for t, logits in enumerate(_follow(ref, toks, served, s)):
+    for t, logits in enumerate(follow(ref, toks, served, s)):
+        if logits is None:
+            continue
         port_logits = batch["logits"][t].to(device)
         mine.append(_judge(logits, port_logits, served[:, t], live[:, t]))
         if ctl is not None:
             kept.append(logits.cpu())
-    if ctl is None:
-        return _joined(mine), None
-    theirs = []
-    for t, clog in enumerate(_follow(ctl, toks, served, s)):
-        logits = kept[t].to(device)
-        theirs.append(_judge(logits, clog, clog.argmax(-1), live[:, t]))
-    return _joined(mine), _joined(theirs)
+    if ctl is not None:
+        theirs = []
+        for t, clog in enumerate(follow(ctl, toks, served, s)):
+            if clog is None:
+                continue
+            logits = kept[t].to(device)
+            theirs.append(_judge(logits, clog, clog.argmax(-1),
+                                 live[:, t]))
+    if not mine:
+        return None, None
+    return _joined(mine), _joined(theirs) if ctl is not None else None

@@ -29,6 +29,25 @@ BF16_LEAVES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo",
 
 
 def make(dims: Dims, seed: int, device, purpose: str = "serve") -> Dict:
+    """The whole tree on ``device``."""
+    p: Dict = {}
+    for path, t in made(dims, seed, device, purpose):
+        put(p, path, t)
+    return p
+
+
+def put(tree: Dict, path, leaf) -> None:
+    """``leaf`` at ``path`` (a tuple of keys) in the nested ``tree``."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def made(dims: Dims, seed: int, device, purpose: str = "serve"):
+    """(path tuple, tensor) of every leaf in the order the generator
+    draws them (the tree's own order), each made as it is asked for: a
+    caller that keeps a piece of each leaf and drops the rest never holds
+    more than one whole leaf."""
     if purpose not in ("serve", "train"):
         raise ValueError(f"purpose {purpose!r}: expected serve or train")
     dev = torch.device(device)
@@ -51,47 +70,65 @@ def make(dims: Dims, seed: int, device, purpose: str = "serve") -> Dict:
         return torch.full(shape, value, dtype=torch.float32, device=dev)
 
     d, f = dims.d, dims.d_ff
-    p: Dict = {"embed": rand("embed", (dims.vocab, d), 0.02), "blocks": {}}
+    yield ("embed",), rand("embed", (dims.vocab, d), 0.02)
     for s in range(per):
-        blk: Dict = {"norm1": {"scale": const((g, d), 1.0)}}
+        at = ("blocks", f"slot{s}")
+        yield at + ("norm1", "scale"), const((g, d), 1.0)
         if dims.kinds[s] == "attn":
             h, kv, hd = dims.heads, dims.kv_heads, dims.hd
-            blk["attn"] = {"wq": dense("wq", (g,), d, h * hd),
-                           "wk": dense("wk", (g,), d, kv * hd),
-                           "wv": dense("wv", (g,), d, kv * hd),
-                           "wo": dense("wo", (g,), h * hd, d)}
+            for name, d_in, d_out in (("wq", d, h * hd), ("wk", d, kv * hd),
+                                      ("wv", d, kv * hd), ("wo", h * hd, d)):
+                yield at + ("attn", name), dense(name, (g,), d_in, d_out)
         else:
             di, n, r, k = dims.di, dims.d_state, dims.dt_rank, dims.d_conv
-            a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
-                                           device=dev))
-            blk["mamba"] = {
-                "in_proj": dense("in_proj", (g,), d, 2 * di),
-                "conv_w": rand("conv_w", (g, di, k), 0.1),
-                "conv_b": const((g, di), 0.0),
-                "x_proj": dense("x_proj", (g,), di, r + 2 * n),
-                "dt_proj": dense("dt_proj", (g,), r, di),
-                "dt_bias": const((g, di), 0.0),
-                "A_log": a_log.repeat(g, di, 1),
-                "D_skip": const((g, di), 1.0),
-                "out_proj": dense("out_proj", (g,), di, d)}
+            m = at + ("mamba",)
+            yield m + ("in_proj",), dense("in_proj", (g,), d, 2 * di)
+            yield m + ("conv_w",), rand("conv_w", (g, di, k), 0.1)
+            yield m + ("conv_b",), const((g, di), 0.0)
+            yield m + ("x_proj",), dense("x_proj", (g,), di, r + 2 * n)
+            yield m + ("dt_proj",), dense("dt_proj", (g,), r, di)
+            yield m + ("dt_bias",), const((g, di), 0.0)
+            yield m + ("A_log",), torch.log(torch.arange(
+                1, n + 1, dtype=torch.float32, device=dev)).repeat(g, di, 1)
+            yield m + ("D_skip",), const((g, di), 1.0)
+            yield m + ("out_proj",), dense("out_proj", (g,), di, d)
         if f > 0:
-            blk["norm2"] = {"scale": const((g, d), 1.0)}
+            yield at + ("norm2", "scale"), const((g, d), 1.0)
             if dims.moe[s]:
                 e = dims.experts
-                blk["moe"] = {
-                    "router": dense("router", (g,), d, e),
-                    "experts": {"w_gate": dense("w_gate", (g, e), d, f),
-                                "w_up": dense("w_up", (g, e), d, f),
-                                "w_down": dense("w_down", (g, e), f, d)}}
+                yield at + ("moe", "router"), dense("router", (g,), d, e)
+                ex = at + ("moe", "experts")
             else:
-                blk["mlp"] = {"w_gate": dense("w_gate", (g,), d, f),
-                              "w_up": dense("w_up", (g,), d, f),
-                              "w_down": dense("w_down", (g,), f, d)}
-        p["blocks"][f"slot{s}"] = blk
-    p["final_norm"] = {"scale": const((d,), 1.0)}
+                e, ex = None, at + ("mlp",)
+            lead = (g,) if e is None else (g, e)
+            for name, d_in, d_out in (("w_gate", d, f), ("w_up", d, f),
+                                      ("w_down", f, d)):
+                yield ex + (name,), dense(name, lead, d_in, d_out)
+    yield ("final_norm", "scale"), const((d,), 1.0)
     if not dims.tie:
-        p["lm_head"] = dense("lm_head", (), d, dims.vocab)
-    return p
+        yield ("lm_head",), dense("lm_head", (), d, dims.vocab)
+
+
+def stage(dims: Dims, seed: int, device, layers: range, *,
+          embed: bool = False, head: bool = False) -> Dict:
+    """The served tree's ``layers`` (whole groups of the stacked tree),
+    with the embedding and the final norm and head where asked: the same
+    numbers as :func:`make`'s, drawn by the same sequence a leaf at a
+    time, each whole leaf freed once its groups are copied.  The groups
+    start at index 0, so that :func:`layer` takes a held layer's index
+    less ``layers.start``."""
+    g0, g1 = layers.start // dims.period, layers.stop // dims.period
+    out: Dict = {}
+    for path, t in made(dims, seed, device, "serve"):
+        if path[0] == "blocks":
+            keep = t[g0:g1].clone()
+        elif embed if path[0] == "embed" else head:
+            keep = t
+        else:
+            continue
+        del t
+        put(out, path, keep)
+    return out
 
 
 def layer(params: Dict, dims: Dims, i: int) -> Dict:

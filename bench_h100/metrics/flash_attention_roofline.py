@@ -1,9 +1,10 @@
 """Row 9's share of its roofline: the least time its calls could take
 (each traced prefill's attention layers at the shapes the model hands the
-kernel, padded batch and all) over the device time of the
-``flash_*_kernel`` records in the trace, in %."""
+kernel, padded batch and all, and on a mesh one card's share of the
+query and KV heads) over the device time of the ``flash_*_kernel``
+records in the trace (rank 0's on a mesh), in %."""
 from bench_h100.harness import flops as F
-from bench_h100.harness.model import dims
+from bench_h100.harness.model import dims, mesh_shape, on_card, rows_on_card
 
 
 def read(run):
@@ -15,6 +16,9 @@ def read(run):
     if not ks or not spans:
         return None
     dm = dims(run.cell.config)
-    bound = sum(F.attn_layers(dm) * F.flash_bound_s(dm, m["batch"], m["seq"])
-                for _, _, _, m in spans)
+    data, model = mesh_shape(run.cell.config)
+    card = on_card(dm, model)
+    bound = sum(F.attn_layers(dm) * F.flash_bound_s(
+        card, rows_on_card(m["batch"], data), m["seq"])
+        for _, _, _, m in spans)
     return 100.0 * bound / (sum(b - a for _, a, b, _ in ks) / 1e9)

@@ -1,7 +1,8 @@
-"""The prefill's share of the card's bf16 peak: the FLOPs of the useful
-(unpadded) prompt tokens, each request alone by the benchmark's formula,
-over the prefill spans' time (synchronised; the traced run's half with
-the profiler off), in %."""
+"""The prefill's share of the cards' bf16 peak: the FLOPs of the useful
+(unpadded) prompt tokens, each request alone by the benchmark's formula
+(the whole model's, on a mesh too), over the prefill spans' time
+(synchronised; the traced run's half with the profiler off) times the
+cards the cell runs on, in %."""
 from bench_h100.harness import flops as F
 from bench_h100.harness.model import dims
 
@@ -16,4 +17,4 @@ def read(run):
     work = sum(F.prefill_flops(dm, len(p)) for b in batches
                for p in b["prompts"])
     t = sum(t1 - t0 for _, t0, t1, _ in spans)
-    return 100.0 * work / (t * F.PEAK_BF16_FLOPS)
+    return 100.0 * work / (t * run.cell.chips * F.PEAK_BF16_FLOPS)

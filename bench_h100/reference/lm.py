@@ -71,12 +71,20 @@ def widen(params: Dict) -> Dict:
 
 
 class Model:
-    def __init__(self, dims: Dims, params: Dict, precision: str = "fp32"):
+    """The model, or with ``layers`` (a range) the stage that holds those
+    layers alone: ``params`` then holds their groups (the first at group
+    index 0, as ``harness.weights.stage`` makes them) and, where the
+    stage has them, the embedding or the final norm and head."""
+
+    def __init__(self, dims: Dims, params: Dict, precision: str = "fp32",
+                 layers: range = None):
         if precision not in ("fp32", "fp8"):
             raise ValueError(f"precision {precision!r}")
         self.dims = dims
         self.p = params
-        self.layers = [layer_of(params, dims, i) for i in range(dims.layers)]
+        self.span = range(dims.layers) if layers is None else layers
+        self.layers = [layer_of(params, dims, i - self.span.start)
+                       for i in self.span]
         self.fp8 = precision == "fp8"
 
     # ------------------------------------------------------------ pieces
@@ -238,19 +246,21 @@ class Model:
         return self.lin(y * F.silu(z), p["out_proj"])
 
     # ------------------------------------------------------------- model
-    def _logits(self, x):
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.p["embed"][tokens.long()].float()
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., d] → logits [..., V]."""
         x = self.norm(x, self.p["final_norm"]["scale"])
         return self.lin(x, head_of(self.p, self.dims))
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor):
-        """tokens [B, S] → (logits at the last position [B, V], state)."""
+    def prefill_layers(self, x: torch.Tensor, state: List[Dict]):
+        """The held layers over x [B, S, d] from position 0; each layer's
+        state appended to ``state``."""
         d = self.dims
-        b, s = tokens.shape
-        pos = torch.arange(s, device=tokens.device)
-        x = self.p["embed"][tokens.long()].float()
-        state: List[Dict] = []
-        for i, lp in enumerate(self.layers):
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i, lp in zip(self.span, self.layers):
             h = self.norm(x, lp["norm1"]["scale"])
             st: Dict = {}
             if d.kinds[i] == "attn":
@@ -262,18 +272,16 @@ class Model:
             if d.d_ff > 0:
                 x = x + self.ffn(self.norm(x, lp["norm2"]["scale"]), lp)
             state.append(st)
-        return self._logits(x[:, -1]), state
+        return x
 
     @torch.no_grad()
-    def decode(self, tokens: torch.Tensor, state, pos: int):
-        """tokens [B] at position ``pos`` → logits [B, V]; ``state``
+    def decode_layers(self, x: torch.Tensor, state: List[Dict], pos: int):
+        """The held layers over x [B, d] at position ``pos``; ``state``
         advances in place."""
         d = self.dims
-        x = self.p["embed"][tokens.long()].float()            # [B, d]
-        at = torch.tensor([pos], device=tokens.device)
-        for i, lp in enumerate(self.layers):
+        at = torch.tensor([pos], device=x.device)
+        for i, lp, st in zip(self.span, self.layers, state):
             h = self.norm(x, lp["norm1"]["scale"])
-            st = state[i]
             if d.kinds[i] == "attn":
                 q, k, v = self._qkv(h[:, None], lp["attn"], at)
                 st["k"] = torch.cat([st["k"], k], dim=2)
@@ -284,4 +292,27 @@ class Model:
                 x = x + self._mamba_step(h, lp["mamba"], st)
             if d.d_ff > 0:
                 x = x + self.ffn(self.norm(x, lp["norm2"]["scale"]), lp)
-        return self._logits(x)
+        return x
+
+    @torch.no_grad()
+    def prefill(self, tokens: torch.Tensor):
+        """tokens [B, S] → (logits at the last position [B, V], state)."""
+        state: List[Dict] = []
+        x = self.prefill_layers(self.embed(tokens), state)
+        return self.logits(x[:, -1]), state
+
+    @torch.no_grad()
+    def decode(self, tokens: torch.Tensor, state, pos: int):
+        """tokens [B] at position ``pos`` → logits [B, V]; ``state``
+        advances in place."""
+        return self.logits(self.decode_layers(self.embed(tokens), state,
+                                              pos))
+
+
+def follow(model: Model, toks, served, s: int):
+    """The model's logits [B, V] at every served position: the prefill's
+    last, then each decode step fed every row's served token."""
+    logits, st = model.prefill(toks)
+    yield logits
+    for t in range(1, served.shape[1]):
+        yield model.decode(served[:, t - 1], st, s + t - 1)

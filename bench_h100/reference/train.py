@@ -47,7 +47,7 @@ def _loss_sum(model: Model, tokens, labels):
         sc = sc.masked_fill(~mask, float("-inf"))
         x = x + model._attn_out(torch.softmax(sc, dim=-1) @ v, lp["attn"])
         x = x + model.mlp(model.norm(x, lp["norm2"]["scale"]), lp["mlp"])
-    logits = model._logits(x)
+    logits = model.logits(x)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            labels.reshape(-1).long(), reduction="sum")
 

@@ -16,6 +16,13 @@ cell's end-to-end metrics, or its per-layer ones with ``--trace 1``),
 last lines on standard error.  It exits non-zero and prints no result
 without a CUDA card, without the port's sources, or when a module of JAX
 or of the JAX package is loaded once the window has closed.
+
+A cell on several cards (``chips`` > 1) runs in one process a card
+(``harness.ranks``, NCCL), started by this one once it has built the
+port's kernels; this process prints rank 0's result.  If any rank fails,
+or the ranks are still running ``RANKS_LIMIT_S`` after this process
+started (plus the kernels' build), every rank is stopped and the run
+exits non-zero with no result.
 """
 import time
 
@@ -28,6 +35,8 @@ import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
+#: a run on several cards ends within this many seconds of its start
+RANKS_LIMIT_S = 330
 
 
 def _fail(code: int, msg: str):
@@ -67,10 +76,15 @@ def main(argv=None) -> None:
             or torch.cuda.device_count() < cell.chips:
         _fail(3, f"{args.workload} needs {cell.chips} CUDA card(s); "
                  f"found {torch.cuda.device_count()}")
-    out = runner.run_cell(args.workload, args.seed, args.seconds,
-                          bool(args.trace), device="cuda", started=STARTED,
-                          cell=cell)
-    bad = runner.forbidden_modules()
+    if cell.chips == 1:
+        out = runner.run_cell(args.workload, args.seed, args.seconds,
+                              bool(args.trace), device="cuda",
+                              started=STARTED, cell=cell)
+        bad = runner.forbidden_modules()
+    else:
+        out = on_ranks(args, cell)
+        bad = sorted(set(out.pop("forbidden"))
+                     | set(runner.forbidden_modules()))
     if bad:
         _fail(4, f"modules of JAX or of the JAX package are loaded: {bad}")
     for key, c in out["checks"].items():
@@ -78,6 +92,27 @@ def main(argv=None) -> None:
               file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(out), flush=True)
+
+
+def on_ranks(args, cell) -> dict:
+    """Rank 0's result of the run on ``cell.chips`` cards."""
+    from bench_h100.harness import ranks, runner
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build_all()          # once, here, not in each rank
+    built = time.perf_counter() - t0
+    # perf_counter is the host's monotonic clock, shared by the ranks:
+    # their set-up counts from this process's start
+    job = {"name": args.workload, "seed": args.seed,
+           "seconds": args.seconds, "traced": bool(args.trace),
+           "started": STARTED, "cell": cell}
+    try:
+        (out,) = ranks.launch(runner.run_ranks, ([job], "nccl"), cell.chips,
+                              backend="nccl",
+                              deadline=STARTED + RANKS_LIMIT_S + built)
+    except ranks.RanksFailed as e:
+        _fail(5, str(e))
+    return out
 
 
 if __name__ == "__main__":

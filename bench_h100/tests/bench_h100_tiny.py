@@ -15,13 +15,15 @@ TINY_WIDTHS = dict(hidden_size=64, num_attention_heads=4,
                    vocab_size=256)
 
 
-def tiny_cell(name: str, **traffic):
-    c = spec.cell(name)
+def tiny_cell(name: str, bench: dict = None, **traffic):
+    c = spec.cell(name, bench)
     cfg = dict(c.config, **TINY_WIDTHS)
     if "mamba_d_state" in cfg:
         cfg.update(num_experts=4, mamba_dt_rank=4, mamba_d_state=4)
         cfg["assumed"] = dict(cfg["assumed"], ssm_chunk=16,
                               moe_group_size=32)
+        if isinstance(cfg.get("deployment"), dict):   # two periods a mesh
+            cfg["num_hidden_layers"] = 2 * cfg["attn_layer_period"]
     else:
         cfg.update(num_hidden_layers=2, max_position_embeddings=128)
     c.config = cfg

@@ -39,9 +39,25 @@ def test_rooflines():
     fl = 4 * b * 32 * 128 * (s * (s + 1) // 2)
     by = 2 * b * s * 128 * (2 * 32 + 2 * 8)
     assert F.flash_bound_s(JAMBA, b, s) == max(fl / 989e12, by / 3.35e12)
-    ch = 8192 * 16
-    want = 4 * (3 * b * s * ch + 2 * b * ch * 8) / 3.35e12
-    assert F.ssm_scan_bound_s(JAMBA, b, s) == pytest.approx(want)
+    # the fused selective scan: dt, x, B, C in bf16, y and the final state
+    # in float32; exps B·L·dI·N at 4.19e12/s, which bound it at Jamba's
+    # prefill [16, 2048, 8192, 16]: 1.026 ms against the bytes' 0.644
+    b, s = 16, 2048
+    by = 2 * b * s * (2 * 8192 + 2 * 16) + 4 * b * s * 8192 \
+        + 4 * b * 8192 * 16
+    ex = b * s * 8192 * 16
+    assert F.selective_scan_bound_s(JAMBA, b, s) == pytest.approx(
+        ex / 4.19e12)
+    assert F.selective_scan_bound_s(JAMBA, b, s) * 1e3 == pytest.approx(
+        1.026, abs=1e-3)
+    assert by / 3.35e12 * 1e3 == pytest.approx(0.644, abs=1e-3)
+    # one card's quarter of the channels on the 1 x 4 mesh: 0.256 ms
+    assert F.selective_scan_bound_s(JAMBA, b, s, 2048) * 1e3 == \
+        pytest.approx(0.256, abs=1e-3)
+    # few positions: the bytes bound it
+    by = 2 * 4 * 3 * (2 * 8192 + 32) + 4 * 4 * 3 * 8192 + 4 * 4 * 8192 * 16
+    assert F.selective_scan_bound_s(JAMBA, 4, 3) == pytest.approx(
+        by / 3.35e12)
 
 
 @pytest.mark.parametrize("cell", ["smollm_360m.column",

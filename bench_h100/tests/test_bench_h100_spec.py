@@ -7,7 +7,7 @@ import pytest
 
 from bench_h100_tiny import ROOT
 from bench_h100.harness import spec
-from bench_h100.harness.model import dims
+from bench_h100.harness.model import dims, mesh_shape
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -17,7 +17,8 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_found_by_name(name):
     c = spec.cell(name, BENCH)
-    assert c.chips == 1
+    data, model = mesh_shape(c.config)      # one card a rank of its mesh
+    assert c.chips == data * model and c.chips in (1, 4)
     assert c.traffic["kind"] in ("serve", "train")
     assert dims(c.config).layers == c.config["num_hidden_layers"]
     names = {m["name"] for m in c.end_to_end}
